@@ -1,8 +1,8 @@
-"""raytracingproject_tpu — a TPU-native differentiable path tracer.
+"""raytracingproject_tpu — a differentiable path tracer for the GPU.
 
 Brand-new JAX/XLA/Pallas framework reproducing the capabilities of the
 reference ShuvalovIvan/RayTracingProject (a C++ "Ray Tracing in One Weekend"
-CPU tracer + Vulkan compute renderer), redesigned TPU-first:
+CPU tracer + Vulkan compute renderer), redesigned for accelerators:
 
 - Scene as a struct-of-arrays pytree (differentiable leaves) instead of the
   reference's virtual `hittable`/`material` class graph
@@ -11,9 +11,9 @@ CPU tracer + Vulkan compute renderer), redesigned TPU-first:
   (reference: src/camera_cpu.h:8-26).
 - Counter-based `jax.random` keys instead of a global mt19937
   (reference: src/rtweekend.h:25-34).
-- Pallas wavefront kernels for the hot intersect/shade path; the pure-jnp
-  megakernel renderer is the differentiable correctness oracle.
-- Multi-chip scaling via `jax.sharding.Mesh` + `shard_map` (rays sharded,
+- A Pallas GPU megakernel (Triton route) for the whole bounce loop; the
+  pure-jnp renderer is the differentiable correctness oracle.
+- Multi-device scaling via `jax.sharding.Mesh` + `shard_map` (rays sharded,
   scene replicated, gradients psum-ed) — replacing the reference's
   single-GPU Vulkan queue machinery.
 """

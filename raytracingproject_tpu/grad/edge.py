@@ -80,7 +80,8 @@ def _topk_candidates(
             s.center_delta[c0:c1]
         )[None]
         oc = origin[:, None, :] - ctr
-        half_b = jnp.einsum("rnc,rc->rn", oc, direction)
+        half_b = jnp.einsum("rnc,rc->rn", oc, direction,
+                            precision=jax.lax.Precision.HIGHEST)
         rad = sg(s.radius[c0:c1])
         cq = dot(oc, oc) - rad[None, :] ** 2
         disc = half_b * half_b - a * cq
@@ -151,7 +152,8 @@ def soft_primary_radiance(
     # primary intersection against every candidate, keeping the discriminant
     oc = origin[:, None, :] - center                       # [R, N|k, 3]
     a = jnp.maximum(dot(direction, direction), 1e-20)[:, None]
-    half_b = jnp.einsum("rnc,rc->rn", oc, direction)
+    half_b = jnp.einsum("rnc,rc->rn", oc, direction,
+                        precision=jax.lax.Precision.HIGHEST)
     cq = dot(oc, oc) - rad_g ** 2
     disc = half_b * half_b - a * cq                        # [R, N|k]
     dpos = disc > 0.0

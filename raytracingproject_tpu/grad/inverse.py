@@ -2,7 +2,7 @@
 
 Benchmark config 4 (BASELINE.md): pixel-loss gradients w.r.t. sphere
 centers, radii, albedo, fuzz, and IOR. The reference has no counterpart —
-this is a TPU-native addition enabled by the megakernel renderer being a
+this is an addition enabled by the megakernel renderer being a
 pure differentiable function of the scene pytree.
 
 Gradient formulation: hit distances are explicit smooth functions of the

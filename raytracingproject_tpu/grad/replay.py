@@ -22,7 +22,7 @@ payoff: the forward can be the Pallas megakernel (which has no VJP) with
 residuals recorded in-kernel, and the backward costs O(depth) per ray.
 
 The reference has no differentiable rendering at all; this module is part
-of the TPU-native differentiable additions (SURVEY.md §7, build-plan
+of the differentiable additions (SURVEY.md §7, build-plan
 step 5). Known estimator properties (documented, matching grad/inverse.py):
 - fuzz gradient at exactly fuzz == 0 is taken as 0 (the recorded direction
   carries no information about the fuzz sample there; fuzz >= 0 so the true
@@ -52,17 +52,23 @@ MISS = -1
 DEAD = -2
 
 
+# The one-hot products below are gathers written as matrix products. They
+# must be exact: at default precision a float32 product may run in TF32 on a
+# GPU (about three decimal digits), and gathered centres and radii would no
+# longer match the forward pass.
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
 def _make_gather_rows(n: int, onehot_fwd: bool = False):
     """Row gather with a one-hot-matmul backward (see replay_radiance
     docstring). `n` is the table row count (static).
 
     Forward: jnp.take behind an optimization_barrier — without the barrier
     XLA hoists the loop-"invariant" gather out of the replay scan and
-    materializes EVERY bounce's padded attribute rows at once
-    ([D, R, C->128 lanes] — 20.7 GB at the 1200x675 depth-50 flagship, a
-    compile-time OOM). `onehot_fwd=True` keeps the round-3 one-hot matmul
-    forward instead (never hoistable, [R, n] working set per step) as the
-    fallback for sizes where even a hoist-blocked gather is risky."""
+    materializes every bounce's attribute rows at once ([D, R, C], a
+    compile-time out-of-memory at 1200x675 depth 50). `onehot_fwd=True`
+    keeps the one-hot matmul forward instead (never hoistable, [R, n]
+    working set per step)."""
     import numpy as np
 
     def _onehot(idx, dtype):
@@ -74,7 +80,8 @@ def _make_gather_rows(n: int, onehot_fwd: bool = False):
     def gather(table, idx):  # [n, C], [R] int32 -> [R, C]
         if onehot_fwd:
             return jnp.dot(_onehot(idx, table.dtype), table,
-                           preferred_element_type=table.dtype)
+                           preferred_element_type=table.dtype,
+                           precision=HIGHEST)
         return jnp.take(jax.lax.optimization_barrier(table), idx, axis=0)
 
     def fwd(table, idx):
@@ -83,7 +90,7 @@ def _make_gather_rows(n: int, onehot_fwd: bool = False):
     def bwd(idx, g):
         g_table = jnp.einsum(
             "rn,rc->nc", _onehot(idx, g.dtype), g,
-            preferred_element_type=g.dtype,
+            preferred_element_type=g.dtype, precision=HIGHEST,
         )
         return g_table, np.zeros(idx.shape, jax.dtypes.float0)
 
@@ -92,16 +99,10 @@ def _make_gather_rows(n: int, onehot_fwd: bool = False):
 
 
 def _make_gather_cols(n: int):
-    """Row gather with attrs in [C, R] (RAY-MINOR) layout, both directions
-    on the MXU.
-
-    The [R, C] one-hot form pads the C=13 attribute axis to the 128-lane
-    MXU minor dimension — ~8x wasted MAC slots per replay step (the
-    dominant cost of the depth-50 backward: [R,488]x[488,128pad] twice a
-    step). Transposed, the matmuls run [16pad,488]x[488,R] forward and
-    [16pad,R]x[R,512pad] for the table cotangent — R (large) occupies the
-    minor dim and the small axes pad only to sublanes. Exact: same one-hot
-    products, relaid."""
+    """Row gather with attrs in [C, R] (ray-minor) layout, both directions
+    as one-hot matrix products: [C, n] x [n, R] forward and [C, R] x [R, n]
+    for the table cotangent, so the large ray axis is the minor dimension.
+    Exact: the same one-hot products as _make_gather_rows, relaid."""
     import numpy as np
 
     def _onehot_t(idx, dtype):  # [n, R]
@@ -112,14 +113,15 @@ def _make_gather_cols(n: int):
     @jax.custom_vjp
     def gather(table_t, idx):  # [C, n], [R] int32 -> [C, R]
         return jnp.dot(table_t, _onehot_t(idx, table_t.dtype),
-                       preferred_element_type=table_t.dtype)
+                       preferred_element_type=table_t.dtype,
+                       precision=HIGHEST)
 
     def fwd(table_t, idx):
         return gather(table_t, idx), idx
 
     def bwd(idx, g):  # g [C, R] -> table_t cotangent [C, n]
         g_t = jnp.dot(g, jnp.transpose(_onehot_t(idx, g.dtype)),
-                      preferred_element_type=g.dtype)
+                      preferred_element_type=g.dtype, precision=HIGHEST)
         return g_t, np.zeros(idx.shape, jax.dtypes.float0)
 
     gather.defvjp(fwd, bwd)
@@ -137,24 +139,6 @@ class PathResiduals(NamedTuple):
     refl: jnp.ndarray   # [D, R] bool — dielectric reflect branch taken
 
 
-class PathResidualsP(NamedTuple):
-    """PathResiduals with the direction held as three [D, R] PLANES.
-
-    The stacked [D, R, 3] form forces XLA to tile the size-3 axis into the
-    128-lane minor dimension when it becomes a saved custom-vjp residual or
-    a cond branch operand — a 42.7x padding expansion that put four 3.95 GB
-    copies in the two-phase backward at depth 50 (compile OOM, round-5
-    batch 1). Separate planes tile as (depth-sublane, ray-lane) with ~zero
-    padding. Used by the two-phase record/replay pair.
-    """
-
-    idx: jnp.ndarray    # [D, R] int32 — hit sphere / MISS / DEAD
-    ndx: jnp.ndarray    # [D, R] float — scattered direction components
-    ndy: jnp.ndarray
-    ndz: jnp.ndarray
-    refl: jnp.ndarray   # [D, R] bool — dielectric reflect branch taken
-
-
 def xla_trace_record(
     scene: Scene,
     origin: jnp.ndarray,
@@ -164,9 +148,9 @@ def xla_trace_record(
     max_depth: int,
 ) -> tuple[jnp.ndarray, PathResiduals]:
     """Forward trace (identical radiance to render.ray_color with the same
-    key) that also records PathResiduals. Used by the CPU-lane equivalence
-    tests and as the off-TPU residual source; on TPU the Pallas megakernel
-    records the same structure in-kernel."""
+    key) that also records PathResiduals. The equivalence tests' residual
+    source; the GPU megakernel records the same structure in-kernel
+    (megakernel.pallas_trace_record)."""
     n = origin.shape[0]
     dtype = origin.dtype
 
@@ -227,16 +211,12 @@ def _make_live_step(table, gather_rows):
     def _live_step(time, carry, r):
         o, d, thr, L = carry
         idx, ndir, refl = r
-        if isinstance(ndir, tuple):
-            # planar residuals (PathResidualsP): stack per step — fused
-            # into the step's elementwise ops, never materialized [D, R, 3]
-            ndir = jnp.stack(ndir, axis=-1)
         # DEGENERATE-DIRECTION GRADIENT GUARD: a lambertian scatter can
         # record ndir ~ 0 (u ~ -n — the case src/vec3.h's near_zero flags
         # and src/material.h:19-25 leaves unfixed; we reproduce the
         # reference estimator). The carry direction then goes ~0 and every
         # 1/|d|-flavored derivative turns near-singular — measured
-        # NaN-poisoning whole training runs (round 5). Values are kept
+        # NaN-poisoning whole training runs. Values are kept
         # EXACT; only the gradient through such a row's direction is
         # stopped (its true derivative is unbounded there anyway).
         sgx = jax.lax.stop_gradient
@@ -283,9 +263,9 @@ def _make_live_step(table, gather_rows):
         # Grad-safe unit direction: normalize()'s sqrt differentiates to
         # inf at |d| == 0, and a degenerate lambertian scatter (u ~ -n,
         # the case src/vec3.h's near_zero flags) records ndir ~ 0 — the
-        # unguarded form NaN-poisoned geometry gradients (round-5; the
+        # unguarded form NaN-poisoned geometry gradients; the
         # maximum routes the zero-length branch's gradient to the
-        # constant, i.e. zero).
+        # constant, i.e. zero.
         ud = d * jax.lax.rsqrt(jnp.maximum(dot(d, d), 1e-24))[:, None]
         # lambertian: recorded dir = n + u, u parameter-independent
         u_const = sg(ndir) - sg(nrm)
@@ -328,10 +308,7 @@ def _make_live_step_cols(table_t, gather_cols):
     def _live_step(time, carry, r):
         o, d, thr, L = carry
         idx, ndir, refl = r
-        if isinstance(ndir, tuple):
-            ndx, ndy, ndz = ndir
-        else:
-            ndx, ndy, ndz = ndir[:, 0], ndir[:, 1], ndir[:, 2]
+        ndx, ndy, ndz = ndir[:, 0], ndir[:, 1], ndir[:, 2]
         # degenerate-direction gradient guard — see _make_live_step
         d_ok = (jnp.sum(d * d, axis=-1) > 1e-12)[:, None]
         d = jnp.where(d_ok, d, sg(d))
@@ -417,8 +394,7 @@ def _make_live_step_cols(table_t, gather_cols):
         perpz = ratio * (udz + cos_t * nz)
         # grad-safe sqrt (the double-where of ops/vecmath.refract): the
         # derivative of sqrt at 0 is inf, and near-TIR rays reach k == 0 —
-        # an unguarded sqrt here NaN-poisoned whole training runs on
-        # hardware (round-5 batch 3 fast_colT rows)
+        # an unguarded sqrt here NaN-poisons training runs
         k = jnp.abs(1.0 - (perpx * perpx + perpy * perpy + perpz * perpz))
         k_pos = k > 0.0
         spar = -jnp.where(k_pos, jnp.sqrt(jnp.where(k_pos, k, 1.0)), 0.0)
@@ -446,122 +422,6 @@ def _make_live_step_cols(table_t, gather_cols):
     return _live_step
 
 
-def replay_radiance_twophase(
-    params: SceneParams,
-    scene: Scene,
-    origin: jnp.ndarray,     # [R, 3]
-    direction: jnp.ndarray,  # [R, 3]
-    time: jnp.ndarray,       # [R]
-    res1: PathResidualsP,    # [cut, Rp] — original ray order
-    res2: PathResidualsP,    # [D - cut, Rp] — PACKED order (alive-first)
-    src: jnp.ndarray,        # [Rp/128] int32 row packing permutation
-    dest: jnp.ndarray,       # [Rp/128] int32 inverse row permutation
-    n_alive: jnp.ndarray,    # scalar int32 — surviving ROWS after the cut
-    cap_rays: int | None = None,
-) -> jnp.ndarray:
-    """Differentiable replay of a TWO-PHASE recording
-    (megakernel.pallas_trace_record_twophase): radiance [R, 3] as a function
-    of `params`, O(cut + tail * survivor_fraction) per ray instead of
-    O(max_depth).
-
-    The phase-1 scan covers every ray for `cut` bounces. The carry
-    (o, d, thr, L — all differentiable functions of params) is then packed
-    by `src` (a stop-gradient permutation) and the phase-2 scan runs over
-    only the first `cap_rays` packed rays — positions past n_alive hold
-    all-DEAD rows contributing exactly zero, so dropping them is EXACT as
-    long as cap_rays >= n_alive. When a frame overflows the capacity
-    (n_alive > cap_rays, e.g. a pathological all-glass view), a
-    `lax.cond` falls back to the full-width phase-2 scan: gradients are
-    ALWAYS exact; capacity only bounds the fast path. Default capacity:
-    half the padded ray count (set cap_rays explicitly to tune; the
-    survivor fraction after cut=4 on the cover scene measures ~10-20%)."""
-    from raytracingproject_tpu.ops.pallas.megakernel import (
-        LANES, _take_ray_rows,
-    )
-
-    sgi = jax.lax.stop_gradient
-    scene_p = apply_params(scene, params)
-    n_spheres = scene.radius.shape[0]
-    table = _attr_table(scene_p, scene)
-
-    R = origin.shape[0]
-    Rp = res1.idx.shape[1]
-    if cap_rays is None:
-        cap_rays = Rp // 2
-    # row-align the capacity (packing/permutation are 128-ray-row granular)
-    cap_rays = min(max(int(cap_rays), LANES), Rp)
-    cap_rays = ((cap_rays + LANES - 1) // LANES) * LANES
-    cap_rows = cap_rays // LANES
-
-    def pad_rows(x, fill=0.0):
-        if Rp == R:
-            return x
-        widths = [(0, Rp - R)] + [(0, 0)] * (x.ndim - 1)
-        return jnp.pad(x, widths, constant_values=fill)
-
-    o0 = pad_rows(origin)
-    d0 = pad_rows(direction, 1.0)  # padding rays: finite direction, DEAD rows
-    tm = pad_rows(time)
-
-    gather1 = _make_gather_rows(n_spheres, onehot_fwd=res1.idx.shape[0] > 16)
-    step1 = _make_live_step(table, gather1)
-    dtype = origin.dtype
-    init = (o0, d0, jnp.ones((Rp, 3), dtype), jnp.zeros((Rp, 3), dtype))
-    body1 = lambda c, r: (step1(tm, c, r), None)
-    carry1, _ = jax.lax.scan(
-        jax.checkpoint(body1), init,
-        (res1.idx, (res1.ndx, res1.ndy, res1.ndz), res1.refl),
-    )
-
-    src = sgi(src)
-    dest = sgi(dest)
-    o_p, d_p, thr_p, L_p = (_take_ray_rows(x, src) for x in carry1)
-    tm_p = _take_ray_rows(tm, src)
-
-    gather2 = _make_gather_rows(n_spheres, onehot_fwd=res2.idx.shape[0] > 16)
-    step2 = _make_live_step(table, gather2)
-
-    def scan2(o, d, thr, L, tmx, r2, step_fn=None):
-        body2 = lambda c, r: ((step_fn or step2)(tmx, c, r), None)
-        xs = (r2.idx, (r2.ndx, r2.ndy, r2.ndz), r2.refl)
-        (_, _, _, L_out), _ = jax.lax.scan(
-            jax.checkpoint(body2), (o, d, thr, L), xs
-        )
-        return L_out
-
-    if cap_rays == Rp:
-        L_packed = scan2(o_p, d_p, thr_p, L_p, tm_p, res2)
-    else:
-        res2_cap = PathResidualsP(*(p[:, :cap_rays] for p in res2))
-
-        def fast_branch(ops):
-            o, d, thr, L, tmx = ops
-            L2 = scan2(
-                o[:cap_rays], d[:cap_rays], thr[:cap_rays], L[:cap_rays],
-                tmx[:cap_rays], res2_cap,
-            )
-            return jnp.concatenate([L2, L[cap_rays:]], axis=0)
-
-        # The exact overflow fallback uses the TAKE gather regardless of
-        # depth: its one-hot form would put a second, FULL-WIDTH [R, N]
-        # per-step buffer next to the fast branch's [cap, N] one (the
-        # flagship two-phase step compile-OOMed exactly here, batch 2).
-        # The fallback is the rare path — lean memory beats speed there.
-        step2_full = _make_live_step(
-            table, _make_gather_rows(n_spheres, onehot_fwd=False)
-        )
-
-        def full_branch(ops):
-            o, d, thr, L, tmx = ops
-            return scan2(o, d, thr, L, tmx, res2, step_fn=step2_full)
-
-        L_packed = jax.lax.cond(
-            n_alive <= cap_rows, fast_branch, full_branch,
-            (o_p, d_p, thr_p, L_p, tm_p),
-        )
-    return _take_ray_rows(L_packed, dest)[:R]
-
-
 def replay_radiance(
     params: SceneParams,
     scene: Scene,
@@ -581,17 +441,13 @@ def replay_radiance(
     renderer (see module docstring). Cost per bounce: ONE sphere quadratic
     per ray.
 
-    Attribute lookup is a HYBRID gather: plain jnp.take in the forward
-    (exact, ~KBs of traffic) with a custom VJP that transposes as ONE-HOT
-    MATMUL (onehot^T @ cotangent on the MXU). Round-2 measured jnp.take's
-    default transpose (scatter-add -> sort-based combiner) at 93% of the
-    step (tools/kgrad.py); round 3 replaced BOTH directions with one-hot
-    matmuls; round 4 found the forward one-hot materializes [R, N] f32 in
-    HBM per bounce (~350 MB at the 400px flagship) — the take-forward /
-    matmul-backward split keeps the exact values and the fast transpose
-    while dropping the forward materialization. Exact: the one-hot rows
-    have a single 1.0, so the transpose product reproduces the gather's
-    adjoint bit-for-bit.
+    Attribute lookup is a hybrid gather: plain jnp.take in the forward with
+    a custom VJP that transposes as a one-hot matrix product
+    (onehot^T @ cotangent) instead of jnp.take's default scatter-add
+    transpose. For deep recordings (depth > 16) the forward is a one-hot
+    product too (`_make_gather_rows(onehot_fwd=True)`). Exact: the one-hot
+    rows have a single 1.0, and every product runs at HIGHEST precision, so
+    the products reproduce the gather and its adjoint.
 
     DEAD-DEPTH SKIPPING: each scan step is predicated on "any ray in this
     batch still un-dead at this bounce" (a constant of `res`), so bounces
@@ -608,16 +464,10 @@ def replay_radiance(
     update nothing), and death is permanent so the predicate is monotone."""
     scene_p = apply_params(scene, params)
     n_spheres = scene.radius.shape[0]
-    # Gather-mode choice, measured end-to-end on hardware (FWDBWD_r04):
-    # the take forward wins ~2x at depth 8 (cover 4.95 -> 8.03 Mrays/s),
-    # but at depth 50 the one-hot forward's per-step working set beats the
-    # (barrier-guarded) take in the full-step context by ~3x per ray
-    # (1200x675 one-hot: 0.27 us/ray vs 400px take: 0.75) AND avoids the
-    # hoisted-[D, R, 128] OOM hazard entirely. Rule: take for shallow
-    # recordings, one-hot for deep.
-    # `gather` override: None = the measured per-depth rule below;
-    # "colT" = the ray-minor transposed MXU gather (_make_gather_cols) —
-    # ~8x fewer MAC slots per step than the [R, C] one-hot at C=13.
+    # Gather mode: take forward for shallow recordings, one-hot forward for
+    # deep ones (it also rules out the hoisted [D, R, C] gather). `gather`
+    # override: "colT" = the ray-minor one-hot gather (_make_gather_cols).
+    # The GPU cost of each mode is not measured yet.
     table = _attr_table(scene_p, scene)
     if gather == "colT":
         _live_step = _make_live_step_cols(
@@ -651,8 +501,7 @@ def replay_radiance(
         init = (o0, d0, jnp.ones((n, 3), dtype), jnp.zeros((n, 3), dtype))
         # Rematerialize the bounce body in the backward sweep: without this
         # the scan saves each bounce's [R, N] one-hot (and quadratic
-        # intermediates) to HBM as residuals — ~90 MB/bounce at cover scale,
-        # dominating the step. Recomputing them from the [R] carry + idx
+        # intermediates) to device memory as residuals, dominating the step. Recomputing them from the [R] carry + idx
         # costs one cheap quadratic per ray (the whole point of replay) and
         # collapses residual traffic to the scan carries.
         if use_cond:
@@ -670,15 +519,9 @@ def replay_radiance(
             )
         return L
 
-    # skip_dead default: OFF. Measured on hardware (FWDBWD_r04, batch 2):
-    # with the take-forward/matmul-backward gather, the plain scan runs the
-    # 400px depth-50 step in 135 ms while the cond-predicated scan takes
-    # 861 ms — XLA/Mosaic handle the gather + its custom transpose far
-    # worse inside cond branches than straight-line, swamping anything the
-    # skipped dead bounces save. The machinery stays (exactness is tested;
-    # bench_grad's fast_skip/fast_g8 rows keep the numbers honest per
-    # round) but only explicit opt-in enables it. Grouping still defaults
-    # its slices to cond (skipping per slice is its whole point).
+    # skip_dead default: off for one group (a cond-wrapped step compiles to
+    # a slower scan than the straight-line one); grouping defaults its
+    # slices to cond, since skipping per slice is its whole point.
     if skip_dead is None:
         skip_dead = n_groups > 1
 

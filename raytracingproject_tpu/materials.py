@@ -2,8 +2,8 @@
 
 The reference's virtual `material::scatter` dispatch becomes branch-free
 masked selects over `mat_type`: all three scatter directions are computed for
-every ray and the right one selected. On TPU this is cheaper than divergent
-control flow — the VPU runs all lanes anyway, and each rule is a handful of
+every ray and the right one selected. On SIMD hardware this is cheaper than
+divergent control flow — all lanes run anyway, and each rule is a handful of
 elementwise ops.
 """
 

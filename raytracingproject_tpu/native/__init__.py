@@ -1,7 +1,7 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The reference's entire runtime is C++ (SURVEY.md §2); the TPU compute path
-here is JAX/XLA/Pallas, and the host-side runtime pieces that benefit from
+The reference's entire runtime is C++ (SURVEY.md §2); the device compute
+path here is JAX/XLA/Pallas, and the host-side runtime pieces that benefit from
 native code live in this package:
 - bvh_builder.cpp: binned-SAH BVH build (completes src/bvh.h:12-14).
 - ppm_io.cpp: fast P3 PPM encode (the reference writes PPM from C++,

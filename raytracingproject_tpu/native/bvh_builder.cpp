@@ -1,5 +1,5 @@
 // Native BVH builder: binned-SAH top-down build, flattened to DFS pre-order
-// with miss links (escape pointers) for the stackless TPU traversal in
+// with miss links (escape pointers) for the stackless device traversal in
 // ../bvh.py.
 //
 // Completes the reference's empty bvh_node constructor

@@ -1,7 +1,7 @@
 """Core compute ops: vector math, sampling, intersection.
 
 All ops are pure functions over batched arrays (SoA layout, last axis = xyz),
-traceable under jit/vmap/grad — the TPU-native replacement for the
+traceable under jit/vmap/grad — the batched replacement for the
 reference's scalar `vec3` / `sphere::hit` / material classes.
 """
 

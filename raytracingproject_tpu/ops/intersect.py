@@ -3,13 +3,14 @@
 Batched over rays and spheres simultaneously; the closest-hit scan
 (reference: src/hittable_list.h:25-39 shrinking `closest_so_far`) becomes a
 masked argmin over the sphere axis, which XLA fuses with the quadratic math
-so no [R, N] intermediate ever leaves registers/VMEM.
+(on an H100 no [R, N] intermediate reaches device memory — PERF.md).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from raytracingproject_tpu.config import T_MIN, T_MAX
@@ -53,7 +54,9 @@ def sphere_hit_t(
     # clamp so 0/0 can't produce NaN — tiny `a` makes both roots invalid,
     # i.e. a miss, which is the sensible limit.
     a = jnp.maximum(dot(direction, direction), 1e-20)[:, None]  # [R, 1]
-    half_b = jnp.einsum("rnc,rc->rn", oc, direction)      # [R, N]
+    # HIGHEST: a float32 contraction may otherwise run in TF32 on a GPU
+    half_b = jnp.einsum("rnc,rc->rn", oc, direction,
+                        precision=jax.lax.Precision.HIGHEST)  # [R, N]
     c = dot(oc, oc) - radius[None, :] ** 2                # [R, N]
 
     disc = half_b * half_b - a * c

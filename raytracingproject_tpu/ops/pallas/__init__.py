@@ -1,5 +1,1 @@
-"""Pallas TPU kernels for the hot path (closest-hit, wavefront tracing)."""
-
-from raytracingproject_tpu.ops.pallas.trace import pallas_closest_hit
-
-__all__ = ["pallas_closest_hit"]
+"""Pallas GPU kernels for the hot path (the full-path megakernel)."""

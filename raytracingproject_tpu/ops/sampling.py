@@ -1,7 +1,7 @@
 """Counter-based random sampling (reference: src/vec3.h:121-147, src/rtweekend.h:25-34).
 
 The reference draws from one global default-seeded mt19937 and uses
-rejection sampling for disk/sphere points. On TPU, rejection loops with
+rejection sampling for disk/sphere points. Rejection loops with
 data-dependent trip counts don't vectorize, so we use exact analytic
 transforms of `jax.random` draws that produce the *same distributions*:
 

@@ -6,14 +6,9 @@ Layout (the BASELINE.json mandated strategy):
 - scene/params replicated; gradient all-reduce emerges as XLA's transpose
   of the replicated-capture inside shard_map.
 
-Collective cost, measured (tools/overlap_hlo.py, OVERLAP_r02.json — the
-real TPU compiler AOT-targeting a v5e:2x4 slice): the scheduled HLO carries
-four synchronous all-reduces totalling ~245 KB (two ~110 KB image/loss
-psums + ~23 KB of parameter grads for the 488-sphere cover scene). The
-compiler declines to async them — correctly: KB-scale collectives are
-microseconds on ICI against a backward sweep of ~1e9 FLOPs/step, so
-overlap is immaterial for this workload class; the scaling story is that
-the gradient collective is negligible, not that it is hidden.
+The collectives are small: the image/loss psums and the parameter-gradient
+all-reduce (about 23 KB for the 488-sphere cover scene). Their time on the
+GPU is not measured yet.
 """
 
 from __future__ import annotations
@@ -63,17 +58,13 @@ def _render_flat(
     spp_local: int,
     use_megakernel: bool = False,
     interpret: bool = False,
-    front=None,
 ) -> jnp.ndarray:
     """Radiance sum over `spp_local` samples for a flat pixel batch [P].
     Samples loop via lax.scan to keep the live set at one wavefront.
 
-    `use_megakernel` runs each shard's rays through the Pallas megakernel
-    (the fast forward path composed WITH sharding — round-1 VERDICT #5);
-    `front` (megakernel.FrontTables, replicated like the scene) additionally
-    enables the front-culled closest hit inside it; `interpret` lowers it
-    through the TPU interpreter so the same sharded program executes on the
-    virtual CPU mesh (dryrun/test lane)."""
+    `use_megakernel` runs each shard's rays through the GPU megakernel;
+    `interpret` runs it in Pallas's interpreter instead, so the same sharded
+    program executes on a virtual CPU mesh (tests)."""
 
     def sample_pass(acc, k):
         k_ray, k_path = jax.random.split(k)
@@ -84,7 +75,7 @@ def _render_flat(
             seed = jax.random.randint(k_path, (), 0, 2**31 - 1, dtype=jnp.int32)
             rad = pallas_trace_paths(
                 origin, direction, time, scene, seed, max_depth,
-                interpret=interpret, front=front,
+                interpret=interpret,
             )
         else:
             rad = ray_color(scene, origin, direction, time, k_path, max_depth)
@@ -103,14 +94,15 @@ def render_sharded(
     mesh: Mesh,
     spp: int | None = None,
     use_megakernel: bool = False,
-    front=None,
+    interpret: bool = False,
 ) -> jnp.ndarray:
     """Distributed render: mean radiance [H, W, 3].
 
     Pixels shard over `rays`; each samples-shard renders spp/n_samples
-    samples and the partial sums are `psum`-ed over `samples` — the
-    collective rides ICI, the scene is replicated, and no pixel data ever
-    moves between ray shards.
+    samples and the partial sums are `psum`-ed over `samples` — the scene
+    is replicated, and no pixel data ever moves between ray shards.
+    `use_megakernel` needs GPU devices, or `interpret=True` (Pallas's
+    interpreter, for CPU meshes).
     """
     width, height = camera.image_size()
     cam = camera.derive(scene.center0.dtype)
@@ -121,29 +113,28 @@ def render_sharded(
         raise ValueError(f"spp {spp} not divisible by samples axis {n_samples}")
     spp_local = spp // n_samples
     max_depth = camera.max_depth
-    interpret = use_megakernel and jax.default_backend() != "tpu"
 
     i, j = _pixel_grid(width, height, n_rays)
 
     @partial(
         shard_map,
         mesh=mesh,
-        in_specs=(P(), P(), P("rays"), P("rays"), P(), P()),
+        in_specs=(P(), P(), P("rays"), P("rays"), P()),
         out_specs=P("rays", None),
         check_vma=False,
     )
-    def shard_fn(scene, cam, i_loc, j_loc, key, front):
+    def shard_fn(scene, cam, i_loc, j_loc, key):
         ray_id = jax.lax.axis_index("rays")
         s_id = jax.lax.axis_index("samples")
         k = jax.random.fold_in(jax.random.fold_in(key, ray_id), s_id)
         acc = _render_flat(
             scene, cam, i_loc, j_loc, k, max_depth=max_depth,
             spp_local=spp_local, use_megakernel=use_megakernel,
-            interpret=interpret, front=front,
+            interpret=interpret,
         )
         return jax.lax.psum(acc, "samples")
 
-    flat = shard_fn(scene, cam, i, j, key, front)
+    flat = shard_fn(scene, cam, i, j, key)
     return flat[: width * height].reshape(height, width, 3) / spp
 
 
@@ -253,24 +244,19 @@ def make_sharded_train_step(
     learning_rate: float = 2e-2,
     trainable: tuple[str, ...] | None = None,
     use_megakernel: bool = False,
-    front=None,
-    two_phase: int | None = None,
-    cap_frac: float = 0.25,
+    interpret: bool = False,
 ):
     """Sharded inverse-rendering step (BASELINE config 5 training path).
 
     Loss pixels shard over `rays`, samples over `samples`; `jax.grad`
     transposes the shard_map so parameter gradients are automatically
-    psum-ed across the whole mesh (a ~KB-scale collective — see the module
-    docstring and OVERLAP_r02.json). Params/opt state are replicated.
+    psum-ed across the whole mesh (a KB-scale collective — see the module
+    docstring). Params/opt state are replicated.
 
-    With `use_megakernel`: `front` (megakernel.FrontTables over `scene`,
-    already in leaf order — FIXED geometry only, same caveat as
-    grad/fast.py) rides replicated into every shard's recording forward;
-    `two_phase` (a cut depth) selects the death-coherent two-phase
-    pipeline (make_fast_radiance_twophase) — compaction and the
-    capacity-bounded replay are shard-local, so the collective structure
-    is unchanged.
+    With `use_megakernel` each shard runs grad/fast.py's megakernel forward
+    and path-replay backward on its own rays; the collective structure is
+    unchanged. It needs GPU devices, or `interpret=True` (Pallas's
+    interpreter, for CPU meshes).
 
     Returns (params0, opt_state0, step) with
     step(params, opt_state, key, target_image) ->
@@ -298,25 +284,16 @@ def make_sharded_train_step(
 
     i, j = _pixel_grid(width, height, n_rays)
     npix = width * height
-    interpret = use_megakernel and jax.default_backend() != "tpu"
     fast_radiance = None
     if use_megakernel:
         # Pallas forward + path-replay backward (grad/fast.py), composed
         # with sharding: each ray shard records its own residuals and
         # replays its own backward; the parameter-gradient psum emerges
         # from the shard_map transpose exactly as in the XLA path.
-        from raytracingproject_tpu.grad.fast import (
-            make_fast_radiance, make_fast_radiance_twophase,
-        )
+        from raytracingproject_tpu.grad.fast import make_fast_radiance
 
-        if two_phase:
-            fast_radiance = make_fast_radiance_twophase(
-                scene, max_depth, cut=two_phase, cap_frac=cap_frac,
-                front=front, interpret=interpret,
-            )
-        else:
-            fast_radiance = make_fast_radiance(scene, max_depth, front=front,
-                                               interpret=interpret)
+        fast_radiance = make_fast_radiance(scene, max_depth,
+                                           interpret=interpret)
 
     @partial(
         shard_map,

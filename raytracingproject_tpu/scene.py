@@ -41,7 +41,7 @@ class Scene(NamedTuple):
     def pad_to(self, n: int) -> "Scene":
         """Pad to a static capacity with inert spheres (radius 0 at infinity).
 
-        The TPU analog of the reference's fixed-capacity
+        The analog of the reference's fixed-capacity
         `DataBuffer<Sphere, 200>` (src/vulkan/graphical_environment_vulkan.h:141):
         static shapes keep XLA from recompiling as spheres are appended.
         """

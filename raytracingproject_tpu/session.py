@@ -1,4 +1,4 @@
-"""Renderer session — the TPU analog of the reference's environment API.
+"""Renderer session — the JAX analog of the reference's environment API.
 
 `RayTracingProject::GraphicalEnvironment` (src/graphical_environment.h:17-32)
 exposes init / load_preconfigured_shapes / add_spheres / add_texture /
@@ -60,7 +60,7 @@ SPHERE_CAPACITY = 200
 def orbit_camera(camera: Camera, angle_deg: float) -> Camera:
     """Camera rotated `angle_deg` around `lookat` about the `vup` axis.
 
-    The TPU-native analog of the reference's animated model matrix
+    The analog of the reference's animated model matrix
     (glm::rotate(mat4(1), time * radians(90), vec3(0,0,1)),
     src/vulkan/graphical_environment_vulkan.cpp:374-391): rotating the scene
     under a fixed camera equals orbiting the camera around the scene, and

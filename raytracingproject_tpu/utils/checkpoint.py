@@ -1,7 +1,7 @@
 """Checkpoint / resume.
 
 The reference has none (SURVEY.md §5.4) — its only recovery path is
-swapchain recreation. TPU-native equivalents:
+swapchain recreation. Equivalents here:
 
 - Render accumulation checkpointing: a high-spp render periodically saves
   (accumulated radiance, samples done) so a preempted job resumes instead

@@ -1,7 +1,7 @@
 """Profiling and observability.
 
 The reference's only perf tooling is the LUNARG_monitor FPS overlay + a
-device memory dump (SURVEY.md §5.1). TPU equivalents:
+device memory dump (SURVEY.md §5.1). Equivalents here:
 - `trace(...)`: jax.profiler trace context writing a TensorBoard-compatible
   profile (xplane) directory.
 - `RaysPerSecond`: running rays/s counter (the renderer's "FPS counter").

@@ -2,7 +2,7 @@
 
 The megakernel (render.py) advances every camera sample through the bounce
 loop in lockstep: after a few bounces most lanes are terminated but still
-occupy VPU lanes until the loop ends. This renderer keeps a fixed-capacity
+occupy vector lanes until the loop ends. This renderer keeps a fixed-capacity
 ray *pool* that stays dense:
 
   1. free slots are refilled with fresh (pixel, sample) work items from a
@@ -16,17 +16,10 @@ Runs until the work queue drains and the pool empties (`lax.while_loop`),
 so per-bounce compute scales with *live* rays, not pixels x spp x depth.
 Forward-only (the megakernel scan remains the differentiable path).
 
-MEASURED VERDICT (round 2, WAVEFRONT_r02.json, real v5e): the dense-pool
-design loses on TPU — 1.96 Mrays/s vs 6.56 for the Pallas megakernel
-(0.3x) at depth 16, because the per-bounce XLA compaction (sort + gathers
-over the pool) costs more than the dead-lane work it saves, and the
-closest-hit runs in XLA rather than fused in-kernel. It beats only the
-plain XLA early-exit scan (2.6x). Kept as a documented design alternative
-and CPU-runnable reference of the compaction idea; do NOT optimize this
-module expecting it to overtake the megakernel — the winning form of
-compaction on TPU is segment-granular (ops/pallas/megakernel.py
-pallas_trace_paths_segmented: compaction BETWEEN kernel segments, dense
-tiles within).
+Kept as a design alternative and CPU-runnable reference of the compaction
+idea. Its per-bounce compaction (sort + gathers over the pool) runs in XLA,
+outside the megakernel; its time on the GPU is not measured yet
+(tools/bench_wavefront.py measures it).
 
 RNG: each work item w = sample*npix + pixel uses fold_in(key, w) — fully
 deterministic and independent of pool scheduling order.

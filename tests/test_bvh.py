@@ -135,34 +135,3 @@ def test_render_with_bvh_matches_brute_force():
     # identical sampling decisions; tiny drift only where float argmin ties
     diff = np.abs(brute - accel)
     assert np.quantile(diff, 0.999) < 1e-4, np.quantile(diff, 0.999)
-
-
-def test_bvh_front_invariants():
-    """Front cut (bvh_front): disjoint contiguous ranges covering all
-    primitives, each subtree box containing its spheres, padding entries
-    degenerate (never-hit point boxes)."""
-    from raytracingproject_tpu.bvh import bvh_front
-
-    for scene, F in (
-        (make_cover_scene(seed=0), 32),
-        (random_scene(37, seed=5, moving=True), 24),
-        (random_scene(3, seed=6), 48),  # fewer prims than front slots
-    ):
-        bvh = build_bvh(scene, leaf_size=8)
-        fr = bvh_front(bvh, max_nodes=F)
-        n = int(scene.radius.shape[0])
-        assert fr.start.shape == (F,)
-        nz = fr.count > 0
-        order = np.argsort(fr.start[nz])
-        s, c = fr.start[nz][order], fr.count[nz][order]
-        assert c.sum() == n
-        assert s[0] == 0 and np.all(s[1:] == s[:-1] + c[:-1])
-        rs = reorder_scene(scene, bvh)
-        bmin, bmax = sphere_bounds(rs)
-        rows = np.where(nz)[0][order]
-        for k, i in enumerate(rows):
-            sl = slice(int(s[k]), int(s[k] + c[k]))
-            assert np.all(bmin[sl] >= fr.fmin[i] - 1e-4)
-            assert np.all(bmax[sl] <= fr.fmax[i] + 1e-4)
-        # padding: degenerate point boxes (slab test can't pass tf > tn)
-        assert np.all(fr.fmin[~nz] == fr.fmax[~nz])

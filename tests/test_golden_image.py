@@ -13,7 +13,7 @@ Full per-pixel parity is validated elsewhere against our own float64 oracle
 The default test renders at reduced resolution/spp so the CPU-mesh test
 suite stays fast; global means and the vertical brightness profile are
 resolution-independent statistics. Set RTP_FULL_GOLDEN=1 to render the
-full 400x225 @ 8 spp comparison (minutes on CPU, seconds on TPU).
+full 400x225 @ 8 spp comparison (minutes on the CPU).
 """
 
 import os
@@ -82,7 +82,7 @@ def test_cover_scene_statistics_match_reference():
 
 @pytest.mark.skipif(
     not os.environ.get("RTP_FULL_GOLDEN"),
-    reason="full-resolution golden render; set RTP_FULL_GOLDEN=1 (fast on TPU)",
+    reason="full-resolution golden render; set RTP_FULL_GOLDEN=1",
 )
 def test_cover_scene_full_resolution_match():
     if not REF.exists():

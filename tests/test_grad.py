@@ -246,27 +246,3 @@ def test_inverse_rendering_recovers_albedo():
     assert losses[-1] < losses[0] * 0.1, (losses[0], losses[-1])
     got = np.asarray(params.albedo[0])
     np.testing.assert_allclose(got, [0.8, 0.2, 0.5], atol=0.08)
-
-
-def test_fast_train_step_rejects_front_with_geometry():
-    """bvh/front tables snapshot FIXED geometry: composing them with
-    trainable geometry must raise (stale-bounds gradients would be silently
-    wrong), while material-only training composes fine."""
-    import pytest
-
-    from raytracingproject_tpu.bvh import build_bvh, reorder_scene
-    from raytracingproject_tpu.camera import Camera
-    from raytracingproject_tpu.grad.fast import make_fast_train_step
-    from raytracingproject_tpu.scene import make_three_sphere_scene
-
-    scene = make_three_sphere_scene()
-    bvh = build_bvh(scene, leaf_size=2)
-    rscene = reorder_scene(scene, bvh)
-    cam = Camera(aspect_ratio=1.0, image_width=16, samples_per_pixel=1,
-                 max_depth=2, vfov=60.0)
-    with pytest.raises(ValueError, match="FIXED geometry"):
-        make_fast_train_step(rscene, cam, trainable=("albedo", "radius"),
-                             bvh=bvh)
-    # material-only: builds without raising (interpret lowering on CPU)
-    make_fast_train_step(rscene, cam, trainable=("albedo",), bvh=bvh,
-                         interpret=True)

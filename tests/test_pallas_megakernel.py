@@ -1,14 +1,37 @@
-"""Full-path Pallas megakernel vs the XLA megakernel — statistical parity
-(different RNG streams, same distributions), interpret mode on CPU."""
+"""GPU megakernel (Pallas, Triton route) against the XLA renderer, run in
+Pallas's interpreter on the CPU: exact where a path consumes no randomness,
+statistical elsewhere (different RNG streams, same distributions); its
+counter-based RNG, padding, block-size invariance, residual encoding, and
+the rule that it runs compiled on the GPU or interpreted on request only.
+
+Every interpreted case stays within two blocks of rays and depth <= 4."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from raytracingproject_tpu.camera import Camera, generate_rays
-from raytracingproject_tpu.ops.pallas.megakernel import pallas_trace_paths
+from raytracingproject_tpu.ops.pallas import megakernel as mk
+from raytracingproject_tpu.ops.pallas.megakernel import (
+    pallas_trace_paths, pallas_trace_record,
+)
 from raytracingproject_tpu.render import ray_color
-from raytracingproject_tpu.scene import make_minimal_scene, make_three_sphere_scene
+from raytracingproject_tpu.scene import (
+    make_cover_scene, make_minimal_scene, make_three_sphere_scene,
+)
+from raytracingproject_tpu.validation import Z_MAX, material_labels, region_z_scores
+
+CAM3 = dict(
+    aspect_ratio=16.0 / 9.0, image_width=64, samples_per_pixel=1,
+    max_depth=8, vfov=90.0, lookfrom=(0.0, 0.0, 0.0),
+    lookat=(0.0, 0.0, -1.0), defocus_angle=0.0, focus_dist=1.0,
+)
+CAM_COVER = dict(
+    aspect_ratio=16.0 / 9.0, image_width=96, samples_per_pixel=1,
+    max_depth=8, vfov=20.0, lookfrom=(13.0, 2.0, 3.0),
+    lookat=(0.0, 0.0, 0.0), defocus_angle=0.6, focus_dist=10.0,
+)
 
 
 def gen(cam, n_rays, key):
@@ -22,29 +45,12 @@ def gen(cam, n_rays, key):
 
 def test_megakernel_depth1_exact():
     """Depth-1 paths are RNG-free (primary hit -> throughput stops, or sky):
-    the Pallas and XLA megakernels must agree to float tolerance per-ray.
-
-    NOTE: the TPU interpreter returns zeros from prng_random_bits, so
-    RNG-dependent bounces cannot be validated here; the statistical parity
-    of deeper paths runs on real TPU (verify drives / bench)."""
+    the megakernel and the XLA renderer must agree to float tolerance per
+    ray."""
     scene = make_three_sphere_scene()
-    cam = Camera(
-        aspect_ratio=16.0 / 9.0,
-        image_width=64,
-        samples_per_pixel=1,
-        max_depth=8,
-        vfov=90.0,
-        lookfrom=(0.0, 0.0, 0.0),
-        lookat=(0.0, 0.0, -1.0),
-        defocus_angle=0.0,
-        focus_dist=1.0,
-    )
-    R = 4096
-    o, d, t = gen(cam, R, jax.random.PRNGKey(0))
-
-    pk = np.asarray(
-        pallas_trace_paths(o, d, t, scene, jnp.int32(7), max_depth=1, interpret=True)
-    )
+    o, d, t = gen(Camera(**CAM3), 4096, jax.random.PRNGKey(0))
+    pk = np.asarray(pallas_trace_paths(o, d, t, scene, jnp.int32(7),
+                                       max_depth=1, interpret=True, block=2048))
     xk = np.asarray(ray_color(scene, o, d, t, jax.random.PRNGKey(3), max_depth=1))
     assert np.isfinite(pk).all()
     np.testing.assert_allclose(pk, xk, atol=5e-5)
@@ -60,152 +66,10 @@ def test_megakernel_sky_exact():
     o = jnp.asarray(rng.uniform(-1, 1, (R, 3)).astype(np.float32))
     d = jnp.asarray(rng.normal(size=(R, 3)).astype(np.float32))
     t = jnp.asarray(rng.random(R).astype(np.float32))
-    pk = np.asarray(
-        pallas_trace_paths(o, d, t, scene, jnp.int32(1), max_depth=4, interpret=True)
-    )
+    pk = np.asarray(pallas_trace_paths(o, d, t, scene, jnp.int32(1),
+                                       max_depth=4, interpret=True, block=1024))
     xk = np.asarray(ray_color(scene, o, d, t, jax.random.PRNGKey(1), max_depth=4))
     np.testing.assert_allclose(pk, xk, atol=2e-5)
-
-
-def test_megakernel_bvh_depth1_exact():
-    """Tile-uniform BVH traversal vs brute megakernel vs XLA, depth-1
-    (RNG-free), interpret mode. Tiny scene: the interpreter executes the
-    per-node while loop sequentially, so node count must stay small here;
-    the full cover-scene parity runs compiled on the TPU lane
-    (tests/test_tpu_lane.py)."""
-    from raytracingproject_tpu.bvh import build_bvh, reorder_scene
-
-    scene = make_three_sphere_scene()
-    bvh = build_bvh(scene, leaf_size=2)
-    rscene = reorder_scene(scene, bvh)
-    cam = Camera(
-        aspect_ratio=16.0 / 9.0,
-        image_width=64,
-        samples_per_pixel=1,
-        max_depth=8,
-        vfov=90.0,
-        lookfrom=(0.0, 0.0, 0.0),
-        lookat=(0.0, 0.0, -1.0),
-        defocus_angle=0.0,
-        focus_dist=1.0,
-    )
-    R = 1024
-    o, d, t = gen(cam, R, jax.random.PRNGKey(4))
-
-    pk_bvh = np.asarray(
-        pallas_trace_paths(o, d, t, rscene, jnp.int32(7), max_depth=1,
-                           interpret=True, bvh=bvh)
-    )
-    pk_brute = np.asarray(
-        pallas_trace_paths(o, d, t, scene, jnp.int32(7), max_depth=1, interpret=True)
-    )
-    xk = np.asarray(ray_color(scene, o, d, t, jax.random.PRNGKey(3), max_depth=1))
-    assert np.isfinite(pk_bvh).all()
-    np.testing.assert_allclose(pk_bvh, pk_brute, atol=5e-6)
-    np.testing.assert_allclose(pk_bvh, xk, atol=5e-5)
-
-
-def test_megakernel_front_depth1_exact():
-    """Front-culled closest hit vs brute megakernel vs XLA, depth-1
-    (RNG-free), interpret mode. The front path tests the same spheres in the
-    same leaf order within uncullled subtrees (padding repeats are no-ops
-    under the strict `<` update), so radiance must match brute to float
-    tolerance."""
-    from raytracingproject_tpu.bvh import build_bvh, reorder_scene
-    from raytracingproject_tpu.ops.pallas.megakernel import front_tables
-
-    scene = make_three_sphere_scene()
-    bvh = build_bvh(scene, leaf_size=2)
-    rscene = reorder_scene(scene, bvh)
-    front = front_tables(rscene, bvh)
-    cam = Camera(
-        aspect_ratio=16.0 / 9.0,
-        image_width=64,
-        samples_per_pixel=1,
-        max_depth=8,
-        vfov=90.0,
-        lookfrom=(0.0, 0.0, 0.0),
-        lookat=(0.0, 0.0, -1.0),
-        defocus_angle=0.0,
-        focus_dist=1.0,
-    )
-    R = 1024
-    o, d, t = gen(cam, R, jax.random.PRNGKey(4))
-
-    pk_front = np.asarray(
-        pallas_trace_paths(o, d, t, rscene, jnp.int32(7), max_depth=1,
-                           interpret=True, front=front)
-    )
-    pk_brute = np.asarray(
-        pallas_trace_paths(o, d, t, scene, jnp.int32(7), max_depth=1, interpret=True)
-    )
-    xk = np.asarray(ray_color(scene, o, d, t, jax.random.PRNGKey(3), max_depth=1))
-    assert np.isfinite(pk_front).all()
-    np.testing.assert_allclose(pk_front, pk_brute, atol=5e-6)
-    np.testing.assert_allclose(pk_front, xk, atol=5e-5)
-
-
-def test_megakernel_front_multiword_depth1_exact():
-    """Two-level front (>1 word of 24 subtrees, word-level cull active) vs
-    brute, depth-1 exact, interpret mode on a 100-sphere scene."""
-    from raytracingproject_tpu.bvh import build_bvh, reorder_scene
-    from raytracingproject_tpu.ops.pallas.megakernel import front_tables
-    from raytracingproject_tpu.scene import make_random_scene
-
-    scene = make_random_scene(100, seed=2)
-    bvh = build_bvh(scene, leaf_size=4)
-    rscene = reorder_scene(scene, bvh)
-    front = front_tables(rscene, bvh, max_nodes=48)
-    assert front.wf.shape == (8, 2)
-    cam = Camera(
-        aspect_ratio=16.0 / 9.0,
-        image_width=64,
-        samples_per_pixel=1,
-        max_depth=8,
-        vfov=20.0,
-        lookfrom=(13.0, 2.0, 3.0),
-        lookat=(0.0, 0.0, 0.0),
-        defocus_angle=0.0,
-        focus_dist=10.0,
-    )
-    R = 1024
-    o, d, t = gen(cam, R, jax.random.PRNGKey(6))
-
-    pk_front = np.asarray(
-        pallas_trace_paths(o, d, t, rscene, jnp.int32(7), max_depth=1,
-                           interpret=True, front=front)
-    )
-    pk_brute = np.asarray(
-        pallas_trace_paths(o, d, t, rscene, jnp.int32(7), max_depth=1,
-                           interpret=True)
-    )
-    assert np.isfinite(pk_front).all()
-    np.testing.assert_allclose(pk_front, pk_brute, atol=5e-6)
-
-
-def test_front_tables_idempotent_padding():
-    """front_tables pads each subtree's range to an UNROLL multiple by
-    repeating the last sphere; every padded column must equal the subtree's
-    last real column, and starts must be contiguous."""
-    from raytracingproject_tpu.bvh import build_bvh, reorder_scene
-    from raytracingproject_tpu.ops.pallas.megakernel import UNROLL, front_tables
-    from raytracingproject_tpu.scene import make_random_scene
-
-    scene = make_random_scene(100, seed=1)
-    bvh = build_bvh(scene, leaf_size=8)
-    rscene = reorder_scene(scene, bvh)
-    front = front_tables(rscene, bvh)
-    sph = np.asarray(front.sph)
-    fi = np.asarray(front.fi)
-    pos = 0
-    for k in range(fi.shape[1]):
-        start, count = int(fi[0, k]), int(fi[1, k])
-        if count == 0:
-            continue
-        assert start == pos
-        assert count % UNROLL == 0
-        pos += count
-    assert pos == sph.shape[1]
 
 
 def test_megakernel_deterministic_given_seed():
@@ -215,35 +79,28 @@ def test_megakernel_deterministic_given_seed():
     o = jnp.asarray(rng.uniform(-2, 2, (R, 3)).astype(np.float32))
     d = jnp.asarray(rng.normal(size=(R, 3)).astype(np.float32))
     t = jnp.asarray(rng.random(R).astype(np.float32))
-    a = np.asarray(pallas_trace_paths(o, d, t, scene, jnp.int32(5), max_depth=6, interpret=True))
-    b = np.asarray(pallas_trace_paths(o, d, t, scene, jnp.int32(5), max_depth=6, interpret=True))
+    run = lambda s: np.asarray(pallas_trace_paths(
+        o, d, t, scene, jnp.int32(s), max_depth=4, interpret=True, block=512))
+    a, b = run(5), run(5)
     np.testing.assert_array_equal(a, b)
+    # the RNG really fires: bounce paths vary with the seed
+    assert not np.array_equal(a, run(6))
 
 
 def test_megakernel_record_miss_identity():
     """record_miss=True must be a pure refactor of the sky accumulation:
     radiance + miss_thr * default_sky(miss_dir) == the plain kernel's
-    radiance (same seed -> same PRNG stream -> identical paths). This is
+    radiance (same seed -> same random stream -> identical paths). This is
     the exactness contract env-map lighting rides on (render_pass applies
     the texture lookup to the recorded planes)."""
     from raytracingproject_tpu.render import sky_color
 
     scene = make_three_sphere_scene()
-    cam = Camera(
-        aspect_ratio=16.0 / 9.0, image_width=64, samples_per_pixel=1,
-        max_depth=8, vfov=90.0, lookfrom=(0.0, 0.0, 0.0),
-        lookat=(0.0, 0.0, -1.0), defocus_angle=0.0, focus_dist=1.0,
-    )
-    R = 4096
-    o, d, t = gen(cam, R, jax.random.PRNGKey(5))
-    plain = np.asarray(
-        pallas_trace_paths(o, d, t, scene, jnp.int32(11), max_depth=4,
-                           interpret=True)
-    )
-    rad, mdir, mthr = pallas_trace_paths(
-        o, d, t, scene, jnp.int32(11), max_depth=4, interpret=True,
-        record_miss=True,
-    )
+    o, d, t = gen(Camera(**CAM3), 4096, jax.random.PRNGKey(5))
+    kw = dict(max_depth=4, interpret=True, block=2048)
+    plain = np.asarray(pallas_trace_paths(o, d, t, scene, jnp.int32(11), **kw))
+    rad, mdir, mthr = pallas_trace_paths(o, d, t, scene, jnp.int32(11),
+                                         record_miss=True, **kw)
     rad, mdir, mthr = np.asarray(rad), np.asarray(mdir), np.asarray(mthr)
     assert np.isfinite(rad).all() and np.isfinite(mdir).all()
     total = rad + mthr * np.asarray(sky_color(jnp.asarray(mdir)))
@@ -253,259 +110,233 @@ def test_megakernel_record_miss_identity():
     assert (mthr[never] == 0.0).all()
 
 
-def test_segmented_record_miss_identity():
-    """Same contract across depth segments: the miss planes ride the
-    inter-segment compaction and come back in original ray order."""
-    from raytracingproject_tpu.ops.pallas.megakernel import (
-        pallas_trace_paths_segmented,
+# ---------------------------------------------------------------------------
+# Counter-based RNG
+# ---------------------------------------------------------------------------
+
+def _stream(vary: str, n: int = 1 << 16):
+    """[n, 4] draws with one of (seed, ray, bounce) running over n values
+    and the others fixed."""
+    k = jnp.arange(n, dtype=jnp.uint32)
+    seed, ray, bounce = jnp.uint32(12345), jnp.full((n,), 77, jnp.uint32), 3
+    if vary == "seed":
+        out = jax.vmap(lambda s: jnp.stack(mk.draws(s, ray[:1], bounce))[:, 0])(k)
+        return np.asarray(out)
+    if vary == "ray":
+        return np.asarray(jnp.stack(mk.draws(seed, k, bounce), axis=-1))
+    out = jax.vmap(lambda b: jnp.stack(mk.draws(seed, ray[:1], b))[:, 0])(k)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("vary", ["seed", "ray", "bounce"])
+def test_rng_uniform_in_range(vary):
+    """Each draw slot is U[0, 1): in range, 24-bit grid, and a chi-square
+    over 64 bins within its 1e-6 tail (df 63: 130)."""
+    u = _stream(vary)
+    assert (u >= 0.0).all() and (u < 1.0).all()
+    np.testing.assert_array_equal(u * (1 << 24), np.floor(u * (1 << 24)))
+    n = u.shape[0]
+    for slot in range(4):
+        counts = np.histogram(u[:, slot], bins=64, range=(0.0, 1.0))[0]
+        chi2 = ((counts - n / 64) ** 2 / (n / 64)).sum()
+        assert chi2 < 130.0, (vary, slot, chi2)
+
+
+@pytest.mark.parametrize("vary", ["seed", "ray", "bounce"])
+def test_rng_draws_independent(vary):
+    """No linear dependence between the four draw slots, nor between
+    neighbouring counters: |correlation| < 5 / sqrt(n)."""
+    u = _stream(vary)
+    n = u.shape[0]
+    bound = 5.0 / np.sqrt(n)
+    c = np.corrcoef(u.T)
+    off = c[~np.eye(4, dtype=bool)]
+    assert np.abs(off).max() < bound, c
+    for slot in range(4):
+        lag = np.corrcoef(u[:-1, slot], u[1:, slot])[0, 1]
+        assert abs(lag) < bound, (slot, lag)
+
+
+def test_rng_streams_distinct_across_inputs():
+    """Changing any one input word changes the draws (no two of seed, ray,
+    bounce alias each other)."""
+    base = np.asarray(jnp.stack(mk.draws(1, jnp.arange(4096, dtype=jnp.uint32), 2)))
+    for seed, bounce in [(2, 2), (1, 3)]:
+        other = np.asarray(jnp.stack(
+            mk.draws(seed, jnp.arange(4096, dtype=jnp.uint32), bounce)))
+        assert (other != base).mean() > 0.99
+    swapped = np.asarray(jnp.stack(mk.draws(2, jnp.arange(4096, dtype=jnp.uint32), 1)))
+    assert (swapped != base).mean() > 0.99
+
+
+# ---------------------------------------------------------------------------
+# Blocks and padding
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("block", [64, 128, 256])
+def test_block_size_invariance(block):
+    """The random stream is keyed by the global ray index, so the image does
+    not depend on the block size: bitwise equal to 32-ray blocks."""
+    scene = make_three_sphere_scene()
+    o, d, t = gen(Camera(**CAM3), 64, jax.random.PRNGKey(12))
+    kw = dict(max_depth=4, interpret=True)
+    ref = np.asarray(pallas_trace_paths(o, d, t, scene, jnp.int32(9), block=32, **kw))
+    got = np.asarray(pallas_trace_paths(o, d, t, scene, jnp.int32(9), block=block, **kw))
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("n_rays", [1, 127, 1000, 4097])
+def test_padding(n_rays):
+    """Any ray count: outputs have the caller's shape, and padding rays
+    (copies of ray 0) never change a real ray — two blocks with one amount
+    of padding give the same radiance and residuals as one block with
+    another."""
+    scene = make_three_sphere_scene()
+    o, d, t = gen(Camera(**CAM3), n_rays, jax.random.PRNGKey(n_rays))
+    one = max(16, mk._next_pow2(n_rays))
+    two = max(16, mk._next_pow2(-(-n_rays // 2)))
+    kw = dict(max_depth=2, interpret=True)
+    a = pallas_trace_paths(o, d, t, scene, jnp.int32(4), block=one, **kw)
+    rad, res = pallas_trace_record(o, d, t, scene, jnp.int32(4), block=two, **kw)
+    assert a.shape == rad.shape == (n_rays, 3)
+    assert res.idx.shape == res.refl.shape == (2, n_rays)
+    assert res.ndir.shape == (2, n_rays, 3)
+    np.testing.assert_array_equal(np.asarray(rad), np.asarray(a))
+
+
+def test_block_must_be_power_of_two():
+    scene = make_minimal_scene()
+    o = jnp.zeros((8, 3))
+    with pytest.raises(ValueError, match="power of two"):
+        pallas_trace_paths(o, o + 1.0, o[:, 0], scene, jnp.int32(0), 2,
+                           interpret=True, block=96)
+
+
+@pytest.mark.parametrize("idx,refl", [(-2, False), (-1, False), (0, False),
+                                      (0, True), (486, True), (1 << 20, False)])
+def test_decode_res_round_trip(idx, refl):
+    """The residual code 2 * idx + refl_bit (refl only on hits) decodes back
+    to (idx, refl); the arithmetic shift floors the negative codes."""
+    code = jnp.asarray([2 * idx + int(refl)], jnp.int32)
+    got_idx, got_refl = mk._decode_res(code)
+    assert int(got_idx[0]) == idx and bool(got_refl[0]) == refl
+
+
+# ---------------------------------------------------------------------------
+# Statistics against the XLA renderer
+# ---------------------------------------------------------------------------
+
+SCENES = {
+    "minimal": (make_minimal_scene, CAM3),
+    "three": (make_three_sphere_scene, CAM3),
+    "cover": (lambda: make_cover_scene(seed=0), CAM_COVER),
+}
+
+
+@pytest.mark.parametrize("depth", [2, 4])
+@pytest.mark.parametrize("scene_name", sorted(SCENES))
+def test_megakernel_matches_xla_statistics(scene_name, depth):
+    """Per-sample radiance of the same camera rays, megakernel vs
+    render.ray_color: every material region's mean within Z_MAX standard
+    errors (validation.py, shared with the GPU lane and chip_smoke.py)."""
+    scene_fn, cam_kw = SCENES[scene_name]
+    scene = scene_fn()
+    o, d, t = gen(Camera(**cam_kw), 8192, jax.random.PRNGKey(depth))
+    pk = pallas_trace_paths(o, d, t, scene, jnp.int32(13), depth,
+                            interpret=True, block=4096)
+    xk = ray_color(scene, o, d, t, jax.random.PRNGKey(14), depth)
+    z = region_z_scores(pk, xk, material_labels(scene, o, d, t), min_count=500)
+    assert max(z.values()) < Z_MAX, z
+
+
+@pytest.fixture(scope="module")
+def glass_rays():
+    """65536 camera rays of the three-sphere scene, most of them on the
+    dielectric sphere, and their region labels."""
+    scene = make_three_sphere_scene()
+    cam = Camera(aspect_ratio=1.0, image_width=128, samples_per_pixel=1,
+                 max_depth=4, vfov=40.0, lookfrom=(0.0, 0.0, 0.0),
+                 lookat=(-1.0, 0.0, -1.0))
+    o, d, t = gen(cam, 1 << 16, jax.random.PRNGKey(21))
+    return scene, (o, d, t), material_labels(scene, o, d, t)
+
+
+@pytest.mark.parametrize("inject_bug", [None, "schlick3"])
+def test_region_statistics_detect_injected_bug(glass_rays, inject_bug):
+    """The statistical test passes the megakernel and fails it with a wrong
+    Schlick exponent (inject_bug='schlick3'): a test that cannot detect a
+    planted bug proves nothing."""
+    scene, (o, d, t), labels = glass_rays
+    pk = pallas_trace_paths(o, d, t, scene, jnp.int32(21), 4, interpret=True,
+                            block=1 << 15, inject_bug=inject_bug)
+    xk = ray_color(scene, o, d, t, jax.random.PRNGKey(22), 4)
+    z = region_z_scores(pk, xk, labels)
+    if inject_bug is None:
+        assert max(z.values()) < Z_MAX, z
+    else:
+        assert z["dielectric"] > Z_MAX, z
+
+
+# ---------------------------------------------------------------------------
+# Compiled for the GPU, or interpreted on request
+# ---------------------------------------------------------------------------
+
+def _entry_points():
+    """Callables that reach the kernel without asking for the interpreter."""
+    from raytracingproject_tpu.grad.fast import make_fast_radiance
+    from raytracingproject_tpu.grad.inverse import extract_params
+    from raytracingproject_tpu.parallel import (
+        make_mesh, make_sharded_train_step, render_sharded,
     )
-    from raytracingproject_tpu.render import sky_color
+    from raytracingproject_tpu.render import render_pass
 
     scene = make_three_sphere_scene()
-    cam = Camera(
-        aspect_ratio=16.0 / 9.0, image_width=64, samples_per_pixel=1,
-        max_depth=8, vfov=90.0, lookfrom=(0.0, 0.0, 0.0),
-        lookat=(0.0, 0.0, -1.0), defocus_angle=0.0, focus_dist=1.0,
-    )
-    R = 2048
-    o, d, t = gen(cam, R, jax.random.PRNGKey(9))
-    plain = np.asarray(
-        pallas_trace_paths_segmented(
-            o, d, t, scene, jnp.int32(3), max_depth=6, seg_len=2,
-            interpret=True,
-        )
-    )
-    rad, mdir, mthr = pallas_trace_paths_segmented(
-        o, d, t, scene, jnp.int32(3), max_depth=6, seg_len=2,
-        interpret=True, record_miss=True,
-    )
-    total = np.asarray(rad) + np.asarray(mthr) * np.asarray(
-        sky_color(jnp.asarray(np.asarray(mdir)))
-    )
-    np.testing.assert_allclose(total, plain, atol=2e-5)
+    cam = Camera(aspect_ratio=1.0, image_width=8, samples_per_pixel=2,
+                 max_depth=2, vfov=60.0)
+    o = jnp.zeros((8, 3))
+    mesh = make_mesh(jax.devices()[:2])
+    return {
+        "trace_paths": lambda: pallas_trace_paths(
+            o, o + 1.0, o[:, 0], scene, jnp.int32(0), 2),
+        "trace_record": lambda: pallas_trace_record(
+            o, o + 1.0, o[:, 0], scene, jnp.int32(0), 2),
+        "render_pass": lambda: render_pass(
+            scene, cam.derive(), jax.random.PRNGKey(0), width=8, height=8,
+            max_depth=2, use_megakernel=True),
+        "fast_radiance": lambda: make_fast_radiance(scene, 2)(
+            extract_params(scene), o, o + 1.0, o[:, 0], jnp.float32(0)),
+        "render_sharded": lambda: render_sharded(
+            scene, cam, jax.random.PRNGKey(0), mesh, use_megakernel=True),
+        "sharded_train_step": lambda: (lambda p, s, step: step(
+            p, s, jax.random.PRNGKey(0), jnp.zeros((8, 8, 3))))(
+            *make_sharded_train_step(scene, cam, mesh, spp=2,
+                                     use_megakernel=True)),
+    }
 
 
-# ---------------------------------------------------------------------------
-# FrontRefresher: per-step geometry-training tables (round-4)
-# ---------------------------------------------------------------------------
-
-def test_front_refresher_matches_front_tables_at_build_params():
-    """At the build-time parameters, refreshed tables must trace identically
-    to the static front_tables path (same partition, same exact boxes up to
-    build-vs-union rounding; the kernel result is what matters)."""
-    from raytracingproject_tpu.bvh import build_bvh, reorder_scene
-    from raytracingproject_tpu.grad.inverse import extract_params
-    from raytracingproject_tpu.ops.pallas.megakernel import (
-        FrontRefresher, front_tables,
-    )
-    from raytracingproject_tpu.scene import make_random_scene
-
-    scene = make_random_scene(60, seed=5)
-    bvh = build_bvh(scene, leaf_size=4)
-    rscene = reorder_scene(scene, bvh)
-    front = front_tables(rscene, bvh, order_point=(13.0, 2.0, 3.0))
-    refresher = FrontRefresher(scene, bvh, order_point=(13.0, 2.0, 3.0))
-    fr2 = refresher.refresh(extract_params(scene))
-
-    cam = Camera(
-        aspect_ratio=16.0 / 9.0, image_width=48, samples_per_pixel=1,
-        max_depth=3, vfov=20.0, lookfrom=(13.0, 2.0, 3.0),
-        lookat=(0.0, 0.0, 0.0),
-    )
-    o, d, t = gen(cam, 2048, jax.random.PRNGKey(3))
-    r1 = pallas_trace_paths(o, d, t, rscene, jnp.int32(5), 3,
-                            front=front, interpret=True)
-    r2 = pallas_trace_paths(o, d, t, scene, jnp.int32(5), 3,
-                            front=fr2, interpret=True)
-    np.testing.assert_allclose(np.asarray(r2), np.asarray(r1), atol=1e-6)
-    # remap maps padded columns to ORIGINAL scene order: composing the
-    # leaf remap with prim_order must reproduce it
-    po = np.asarray(bvh.prim_order)
-    np.testing.assert_array_equal(
-        np.asarray(fr2.remap), po[np.asarray(front.remap)]
-    )
+@pytest.mark.parametrize("entry", ["trace_paths", "trace_record", "render_pass",
+                                   "fast_radiance", "render_sharded",
+                                   "sharded_train_step"])
+def test_kernel_off_gpu_needs_explicit_interpret(entry):
+    """Off the GPU every path to the kernel raises unless the caller passed
+    interpret=True: nothing falls back to the interpreter on its own."""
+    with pytest.raises(ValueError, match="compiled for the GPU"):
+        _entry_points()[entry]()
 
 
-def test_front_refresher_tracks_moved_geometry():
-    """After moving a sphere, refreshed boxes must still bound it (culling
-    stays exactness-preserving) and the kernel must agree with the brute
-    megakernel on the MOVED scene."""
-    from raytracingproject_tpu.bvh import build_bvh
-    from raytracingproject_tpu.grad.inverse import apply_params, extract_params
-    from raytracingproject_tpu.ops.pallas.megakernel import FrontRefresher
-    from raytracingproject_tpu.scene import make_random_scene
-
-    scene = make_random_scene(40, seed=9)
-    bvh = build_bvh(scene, leaf_size=4)
-    refresher = FrontRefresher(scene, bvh)
-    params = extract_params(scene)
-    moved = params._replace(
-        center0=params.center0.at[7].add(jnp.asarray([0.9, -0.4, 0.6]))
-    )
-    fr = refresher.refresh(moved)
-    moved_scene = apply_params(scene, moved)
-
-    # every sphere is inside its subtree's refreshed box
-    ff = np.asarray(fr.ff)
-    fi = np.asarray(fr.fi)
-    sph = np.asarray(fr.sph)
-    for k in range(fi.shape[1]):
-        s, c = fi[0, k], fi[1, k]
-        if c == 0:
-            continue
-        cols = sph[:, s : s + c]
-        for tt in (0.0, 1.0):
-            ctr = cols[0:3] + tt * cols[3:6]
-            assert (ctr - np.abs(cols[6]) >= ff[0:3, k][:, None] - 1e-5).all()
-            assert (ctr + np.abs(cols[6]) <= ff[3:6, k][:, None] + 1e-5).all()
-
-    cam = Camera(
-        aspect_ratio=16.0 / 9.0, image_width=48, samples_per_pixel=1,
-        max_depth=3, vfov=20.0, lookfrom=(13.0, 2.0, 3.0),
-        lookat=(0.0, 0.0, 0.0),
-    )
-    o, d, t = gen(cam, 2048, jax.random.PRNGKey(4))
-    r_brute = pallas_trace_paths(o, d, t, moved_scene, jnp.int32(5), 3,
-                                 interpret=True)
-    r_front = pallas_trace_paths(o, d, t, moved_scene, jnp.int32(5), 3,
-                                 front=fr, interpret=True)
-    np.testing.assert_allclose(np.asarray(r_front), np.asarray(r_brute),
-                               atol=1e-6)
-
-
-def test_geometry_train_step_dynamic_front_matches_brute():
-    """make_fast_geometry_train_step with refreshed tables must produce the
-    same loss/grads as the brute fast step (same keys; interpret PRNG is
-    deterministic, and culled subtrees cannot contain winners)."""
-    from raytracingproject_tpu.bvh import build_bvh
-    from raytracingproject_tpu.grad.fast import (
-        make_fast_geometry_train_step, make_fast_train_step,
-    )
-    from raytracingproject_tpu.ops.pallas.megakernel import FrontRefresher
-    from raytracingproject_tpu.scene import make_random_scene
-
-    scene = make_random_scene(30, seed=11)
-    cam = Camera(
-        aspect_ratio=1.0, image_width=32, samples_per_pixel=1, max_depth=3,
-        vfov=20.0, lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0),
-    )
-    target = jnp.zeros((32, 32, 3))
-    trainable = ("center0", "radius", "albedo")
-
-    bp, bo, bstep = make_fast_train_step(
-        scene, cam, spp=1, trainable=trainable, interpret=True,
-    )
-    bvh = build_bvh(scene, leaf_size=4)
-    refresher = FrontRefresher(scene, bvh, order_point=(13.0, 2.0, 3.0))
-    gp, go, gstep = make_fast_geometry_train_step(
-        scene, cam, spp=1, trainable=trainable, interpret=True,
-    )
-
-    key = jax.random.PRNGKey(6)
-    bp1, _, bloss, bg = bstep(bp, bo, key, target)
-    gp1, _, gloss, gg = gstep(gp, go, key, target, refresher.refresh(gp))
-    np.testing.assert_allclose(float(gloss), float(bloss), rtol=1e-6)
-    for f in bg._fields:
-        np.testing.assert_allclose(
-            np.asarray(getattr(gg, f)), np.asarray(getattr(bg, f)),
-            atol=1e-6, err_msg=f,
-        )
-    # a second step exercises the refresh-after-update loop
-    gp2, _, gloss2, _ = gstep(gp1, go, jax.random.fold_in(key, 1), target,
-                              refresher.refresh(gp1))
-    assert np.isfinite(float(gloss2))
-
-
-def test_front_repack_variants_match():
-    """Intra-word best-t re-packing (FrontTables.repack) is an evaluation-
-    order change only: culled chunks cannot contain a strictly closer hit,
-    so radiance must match repack=1 exactly (same strict `<` updates over
-    the same sphere set)."""
-    from raytracingproject_tpu.bvh import build_bvh, reorder_scene
-    from raytracingproject_tpu.ops.pallas.megakernel import front_tables
-    from raytracingproject_tpu.scene import make_random_scene
-
-    scene = make_random_scene(80, seed=13)
-    bvh = build_bvh(scene, leaf_size=4)
-    rscene = reorder_scene(scene, bvh)
-    cam = Camera(
-        aspect_ratio=16.0 / 9.0, image_width=48, samples_per_pixel=1,
-        max_depth=3, vfov=20.0, lookfrom=(13.0, 2.0, 3.0),
-        lookat=(0.0, 0.0, 0.0),
-    )
-    o, d, t = gen(cam, 2048, jax.random.PRNGKey(21))
-    base = None
-    for rp in (1, 2, 3):
-        front = front_tables(rscene, bvh, order_point=(13.0, 2.0, 3.0),
-                             repack=rp)
-        rad = np.asarray(
-            pallas_trace_paths(o, d, t, rscene, jnp.int32(5), 3,
-                               front=front, interpret=True)
-        )
-        if base is None:
-            base = rad
-        else:
-            np.testing.assert_allclose(rad, base, atol=1e-6,
-                                       err_msg=f"repack={rp}")
-
-
-def test_refresh_in_jit_matches_host_refresh():
-    """The on-device (jittable) table refresh must reproduce the host
-    refresh exactly: same padded sphere table, same subtree/word/super
-    union boxes, same layout tables."""
-    from raytracingproject_tpu.bvh import build_bvh
-    from raytracingproject_tpu.grad.inverse import extract_params
-    from raytracingproject_tpu.ops.pallas.megakernel import FrontRefresher
-    from raytracingproject_tpu.scene import make_random_scene
-
-    scene = make_random_scene(70, seed=17)
-    bvh = build_bvh(scene, leaf_size=4)
-    refresher = FrontRefresher(scene, bvh, order_point=(13.0, 2.0, 3.0))
-    params = extract_params(scene)
-    moved = params._replace(
-        center0=params.center0.at[5].add(jnp.asarray([0.4, 0.2, -0.3])),
-        radius=params.radius.at[11].multiply(1.3),
-    )
-    host = refresher.refresh(moved)
-    dev = jax.jit(refresher.refresh_in_jit)(moved)
-    for name in ("sph", "ff", "fi", "wf", "sf", "remap"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(dev, name)), np.asarray(getattr(host, name)),
-            atol=1e-5, err_msg=name,
-        )
-
-
-def test_geometry_train_step_in_jit_refresh_matches_explicit():
-    """make_fast_geometry_train_step(refresher=...) (in-jit refresh, no
-    front argument) must match the explicit-front step exactly."""
-    from raytracingproject_tpu.bvh import build_bvh
-    from raytracingproject_tpu.grad.fast import make_fast_geometry_train_step
-    from raytracingproject_tpu.ops.pallas.megakernel import FrontRefresher
-    from raytracingproject_tpu.scene import make_random_scene
-
-    scene = make_random_scene(30, seed=11)
-    cam = Camera(
-        aspect_ratio=1.0, image_width=32, samples_per_pixel=1, max_depth=3,
-        vfov=20.0, lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0),
-    )
-    target = jnp.zeros((32, 32, 3))
-    trainable = ("center0", "radius", "albedo")
-    bvh = build_bvh(scene, leaf_size=4)
-    refresher = FrontRefresher(scene, bvh, order_point=(13.0, 2.0, 3.0))
-
-    ep, eo, estep = make_fast_geometry_train_step(
-        scene, cam, spp=1, trainable=trainable, interpret=True,
-    )
-    ap, ao, astep = make_fast_geometry_train_step(
-        scene, cam, refresher=refresher, spp=1, trainable=trainable,
-        interpret=True,
-    )
-    key = jax.random.PRNGKey(6)
-    ep1, _, eloss, eg = estep(ep, eo, key, target, refresher.refresh(ep))
-    ap1, _, aloss, ag = astep(ap, ao, key, target)
-    np.testing.assert_allclose(float(aloss), float(eloss), rtol=1e-6)
-    for f in eg._fields:
-        np.testing.assert_allclose(
-            np.asarray(getattr(ag, f)), np.asarray(getattr(eg, f)),
-            atol=1e-6, err_msg=f,
-        )
+@pytest.mark.parametrize("kind", ["paths", "record_miss", "record"])
+def test_megakernel_lowers_for_cuda(kind, monkeypatch):
+    """The kernel lowers through Pallas's Triton route for the CUDA platform
+    at the cover scene's width and depth 50 (lowering needs no GPU; only
+    compiling to the card's code does)."""
+    monkeypatch.setattr(mk, "_check_backend", lambda interpret: None)
+    scene = make_cover_scene(seed=0)
+    o = jnp.zeros((1000, 3))
+    if kind == "record":
+        f = lambda o, s: pallas_trace_record(o, o + 1.0, o[:, 0], scene, s, 50)
+    else:
+        f = lambda o, s: pallas_trace_paths(o, o + 1.0, o[:, 0], scene, s, 50,
+                                            record_miss=kind == "record_miss")
+    text = jax.jit(f).trace(o, jnp.int32(1)).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "triton" in text.lower()

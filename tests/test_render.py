@@ -163,9 +163,9 @@ def test_block_order_roundtrip():
     from raytracingproject_tpu.render import _block_order
 
     for (w, h, spp) in [(40, 23, 4), (64, 36, 1), (33, 17, 3)]:
-        slot_pix, gather = _block_order(w, h, spp, tile=1024)
+        slot_pix, gather = _block_order(w, h, spp, tile=128)
         n = w * h
-        assert slot_pix.size % 1024 == 0
+        assert slot_pix.size % 128 == 0
         counts = np.bincount(slot_pix[: spp * n], minlength=n)
         assert (counts == spp).all()          # each pixel sampled spp times
         assert (slot_pix[spp * n:] == 0).all()  # padding renders pixel 0
@@ -181,3 +181,40 @@ def test_block_order_roundtrip():
         img = rad[gather].sum(axis=0)  # blocks_to_image without the reshape
         expect = np.arange(n) * 10 * spp + spp * (spp - 1) / 2
         np.testing.assert_array_equal(img, expect)
+
+
+def test_megakernel_with_bvh_raises():
+    """No GPU kernel traverses a BVH: asking for both raises instead of
+    quietly using brute force."""
+    import pytest
+
+    from raytracingproject_tpu.config import RenderSettings
+
+    scene = make_minimal_scene()
+    cam = small_camera(image_width=8, samples_per_pixel=1)
+    with pytest.raises(ValueError, match="no GPU kernel traverses a BVH"):
+        render(scene, cam, jax.random.PRNGKey(0),
+               RenderSettings(use_megakernel=True, use_bvh=True))
+
+
+def test_render_pass_megakernel_slots_and_env_map():
+    """render_pass's megakernel plumbing, interpreted: raw slot-space output
+    through blocks_to_image equals the row-major image, and a sky texture
+    rides the miss planes."""
+    from raytracingproject_tpu.render import blocks_to_image, render_pass
+
+    scene = make_minimal_scene()
+    cam = small_camera(image_width=8, samples_per_pixel=1)  # 64 rays
+    w, h = cam.image_size()
+    kw = dict(width=w, height=h, max_depth=3, spp_chunk=2,
+              use_megakernel=True, interpret=True)
+    key = jax.random.PRNGKey(4)
+    img = np.asarray(render_pass(scene, cam.derive(), key, **kw))
+    slots = render_pass(scene, cam.derive(), key, raw_slots=True, **kw)
+    np.testing.assert_allclose(
+        np.asarray(blocks_to_image(slots, w, h, 2)), img, atol=1e-6)
+    assert img.shape == (h, w, 3) and np.isfinite(img).all()
+    tex = jnp.full((4, 8, 3), 0.25, jnp.float32)
+    far = scene._replace(center0=scene.center0 + 1e7)  # every ray misses
+    sky = np.asarray(render_pass(far, cam.derive(), key, sky_tex=tex, **kw))
+    np.testing.assert_allclose(sky, 2 * 0.25, atol=1e-5)

@@ -8,6 +8,7 @@ full renderer analytically — same estimator, different evaluation order.
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from raytracingproject_tpu.camera import Camera, generate_rays
 from raytracingproject_tpu.grad.inverse import apply_params, extract_params
@@ -154,21 +155,22 @@ def test_replay_gradients_match_on_cover_scene():
 
 
 def test_pallas_record_replay_interpret():
-    """Megakernel residual recording (interpret mode): radiance matches the
-    non-recording kernel bit-for-bit, and the replay reproduces it. The
-    interpreter's PRNG returns zeros — the draws are degenerate but fixed,
-    which is all replay needs (it treats them as constants)."""
+    """Megakernel residual recording (interpreted): radiance matches the
+    non-recording kernel bit-for-bit (same seed, same random stream), and
+    the replay of the residuals rebuilds it."""
     from raytracingproject_tpu.ops.pallas.megakernel import (
         pallas_trace_paths, pallas_trace_record,
     )
 
     scene, sc = _setup(make_three_sphere_scene, **CAM3)
     o, d, t = _rays(sc, 1024, jax.random.PRNGKey(6))
-    rad0 = pallas_trace_paths(o, d, t, scene, jnp.int32(3), 3, interpret=True)
-    rad, res = pallas_trace_record(o, d, t, scene, jnp.int32(3), 3, interpret=True)
-    np.testing.assert_allclose(np.asarray(rad), np.asarray(rad0), atol=1e-6)
+    kw = dict(interpret=True, block=512)
+    rad0 = pallas_trace_paths(o, d, t, scene, jnp.int32(3), 3, **kw)
+    rad, res = pallas_trace_record(o, d, t, scene, jnp.int32(3), 3, **kw)
+    np.testing.assert_array_equal(np.asarray(rad), np.asarray(rad0))
     assert res.idx.shape == (3, 1024)
     assert set(np.unique(res.idx)) <= set(range(-2, scene.radius.shape[0]))
+    assert np.asarray(res.refl).any()  # the dielectric branch bit is recorded
 
     rad_rp = replay_radiance(extract_params(scene), scene, o, d, t, res)
     a, b = np.asarray(rad), np.asarray(rad_rp)
@@ -177,10 +179,9 @@ def test_pallas_record_replay_interpret():
 
 
 def test_fast_radiance_custom_vjp_interpret():
-    """make_fast_radiance: forward = Pallas (interpret), backward = replay.
-    Gradient must match the full XLA reverse-mode when replay uses the same
-    residuals — here we check it against replay directly (estimator
-    identity with XLA is covered above)."""
+    """make_fast_radiance: forward = megakernel (interpreted), backward =
+    replay. Value and gradient must equal the replay of the kernel's own
+    residuals (estimator identity with XLA is covered above)."""
     from raytracingproject_tpu.grad.fast import make_fast_radiance
     from raytracingproject_tpu.ops.pallas.megakernel import pallas_trace_record
 
@@ -201,6 +202,59 @@ def test_fast_radiance_custom_vjp_interpret():
     )(params)
     np.testing.assert_allclose(float(val), float(jnp.sum(rad * w)), rtol=1e-5)
     _assert_grads_match(scene, g_ref, g, 1e-4)
+
+
+def _mirror_scene():
+    """Mirror spheres (metal, fuzz 0): every path is deterministic, so the
+    megakernel's forward equals the XLA renderer's whatever the RNG."""
+    from raytracingproject_tpu.scene import SceneBuilder
+
+    return (
+        SceneBuilder()
+        .add_metal(center=(0.0, 0.0, -1.5), radius=0.5,
+                   albedo=(0.9, 0.8, 0.7), fuzz=0.0)
+        .add_metal(center=(1.1, 0.2, -2.0), radius=0.4,
+                   albedo=(0.6, 0.7, 0.9), fuzz=0.0)
+        .add_metal(center=(-1.0, -0.3, -1.8), radius=0.45,
+                   albedo=(0.7, 0.9, 0.6), fuzz=0.0)
+        .build()
+    )
+
+
+@pytest.fixture(scope="module")
+def mirror_grads():
+    """(gradients through make_fast_radiance, through ray_color) of one
+    weighted-radiance loss on the mirror scene; the forwards must agree."""
+    from raytracingproject_tpu.grad.fast import make_fast_radiance
+
+    scene = _mirror_scene()
+    cam = Camera(**CAM3)
+    o, d, t = _rays((cam.derive(), cam.image_width, cam.image_height), 1024,
+                    jax.random.PRNGKey(31))
+    w = jax.random.uniform(jax.random.PRNGKey(32), (o.shape[0], 3))
+    params = extract_params(scene)
+    f = make_fast_radiance(scene, 4, interpret=True)
+    rad_k = f(params, o, d, t, jnp.float32(5))
+    rad_x = ray_color(scene, o, d, t, jax.random.PRNGKey(1), 4)
+    np.testing.assert_allclose(np.asarray(rad_k), np.asarray(rad_x), atol=2e-5)
+    g_k = jax.grad(lambda p: jnp.sum(f(p, o, d, t, jnp.float32(5)) * w))(params)
+    g_x = jax.grad(lambda p: jnp.sum(
+        ray_color(apply_params(scene, p), o, d, t, jax.random.PRNGKey(1), 4) * w
+    ))(params)
+    return g_k, g_x
+
+
+@pytest.mark.parametrize("field", ["center0", "center_delta", "radius", "albedo"])
+def test_fast_radiance_grads_match_xla_reverse_mode(mirror_grads, field):
+    """On a scene without randomness, gradients through make_fast_radiance
+    (megakernel forward, interpreted; replay backward) equal jax.grad
+    through render.ray_color, field by field."""
+    g_k, g_x = mirror_grads
+    a = np.asarray(getattr(g_x, field))
+    b = np.asarray(getattr(g_k, field))
+    assert np.abs(a).max() > 0
+    rel = np.linalg.norm(b - a) / (np.linalg.norm(a) + 1e-6)
+    assert rel < 1e-3, f"{field}: relative gradient error {rel:.2e}"
 
 
 def test_grouped_replay_matches_ungrouped():
@@ -268,9 +322,9 @@ def test_replay_dead_depth_predicate_skips():
 
 
 def test_colT_gather_grads_match_default():
-    """The ray-minor transposed MXU gather (gather="colT") must produce the
+    """The ray-minor transposed one-hot gather (gather="colT") must produce the
     same radiance and gradients as the default replay — it is the same
-    one-hot algebra relaid for the MXU.
+    one-hot algebra relaid.
 
     Gradient equality is asserted at depth 3: a SINGLE replay step agrees
     to ~2e-7 (measured), but bounce chains amplify fp noise through

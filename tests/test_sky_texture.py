@@ -1,7 +1,7 @@
 """Environment-map sky (render.sky_color with sky_tex + session wiring).
 
 The reference's texture is loaded and *displayed* (sampled by the frag
-shader, /root/reference/src/vulkan/texture.cpp:9-43); the TPU-native
+shader, /root/reference/src/vulkan/texture.cpp:9-43); the path-tracing
 equivalent is an environment light: add_texture's image becomes the miss
 radiance (equirectangular lookup)."""
 
@@ -75,11 +75,10 @@ def test_session_texture_becomes_environment(tmp_path):
 
 
 def test_megakernel_record_miss_env_map_matches_xla():
-    """Advisor round-3: a REAL (non-default) texture through the megakernel
-    miss-recording path, runnable off-hardware. Interpret mode zeroes the
-    in-kernel PRNG, so the scene uses only deterministic physics — metal
+    """A real (non-default) texture through the megakernel's miss-recording
+    path, interpreted. The scene uses only deterministic physics — metal
     with fuzz 0 (mirror reflection consumes no randomness in either
-    renderer) — making the Pallas paths bit-comparable to the XLA oracle:
+    renderer) — making the kernel comparable ray by ray to the XLA oracle:
       pallas(record_miss) + miss_thr * sky_color(miss_dir, tex)
     must equal ray_color(..., sky_tex=tex). This is exactly the formula
     render_pass applies to the recorded planes (render.py), so the env-map
@@ -115,7 +114,8 @@ def test_megakernel_record_miss_env_map_matches_xla():
     o, dr, t = generate_rays(d, ii.reshape(-1), jj.reshape(-1), key)
 
     rad, mdir, mthr = pallas_trace_paths(
-        o, dr, t, scene, jnp.int32(3), 4, interpret=True, record_miss=True
+        o, dr, t, scene, jnp.int32(3), 4, interpret=True, record_miss=True,
+        block=2048,
     )
     total = np.asarray(rad) + np.asarray(mthr) * np.asarray(
         sky_color(mdir, tex)

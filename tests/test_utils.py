@@ -128,3 +128,29 @@ def test_cli_produces_ppm():
     assert lines[2] == "255"
     assert len(lines) == 3 + 32 * 18
     assert "Done." in res.stderr
+
+
+def test_compilation_cache_dir_from_env(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR, when set, is where the cache goes."""
+    from raytracingproject_tpu.utils.cache import cache_dir, enable_compilation_cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert cache_dir() == str(tmp_path)
+    old = jax.config.jax_compilation_cache_dir
+    try:
+        enable_compilation_cache()
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_compilation_cache_dir_default(monkeypatch):
+    """Without the variable, the cache is the fixed <repo>/.jax_cache."""
+    from pathlib import Path
+
+    import raytracingproject_tpu
+    from raytracingproject_tpu.utils.cache import cache_dir
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = Path(raytracingproject_tpu.__file__).resolve().parents[1]
+    assert Path(cache_dir()).resolve() == repo / ".jax_cache"

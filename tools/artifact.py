@@ -1,35 +1,14 @@
-"""Shared artifact-round numbering for the per-round JSON records.
-
-Every harness (bench_grad, bench_front_full, bench_config3/5, roofline,
-kprobes, ...) stamps its artifact with the same round number. Advisor
-round-3 finding: deriving the round from max(BENCH_r*)+1 couples companion
-artifacts to whether bench.py has already run this round — a rerun after
-the driver writes BENCH_rNN stamps a different round than the committed
-one. The fix: honor a shared RTP_ROUND env var first (the round's device
-scripts export it), falling back to the BENCH series only when unset.
-"""
+"""Where the measuring scripts write their JSON records: `<repo>/bench_out/`
+(listed in .gitignore; the records are products of a run, not sources)."""
 
 from __future__ import annotations
 
-import glob
 import os
-import re
-
-
-def artifact_round() -> int:
-    env = os.environ.get("RTP_ROUND")
-    if env:
-        return int(env)
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    rounds = [
-        int(m.group(1))
-        for f in glob.glob(os.path.join(repo, "BENCH_r*.json"))
-        if (m := re.search(r"BENCH_r(\d+)", f))
-    ]
-    return (max(rounds) + 1) if rounds else 0
 
 
 def artifact_path(prefix: str) -> str:
-    """e.g. artifact_path('FRONT') -> '<repo>/FRONT_r04.json'."""
+    """e.g. artifact_path('CONFIG3') -> '<repo>/bench_out/CONFIG3.json'."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    return os.path.join(repo, f"{prefix}_r{artifact_round():02d}.json")
+    out = os.path.join(repo, "bench_out")
+    os.makedirs(out, exist_ok=True)
+    return os.path.join(out, f"{prefix}.json")

@@ -1,45 +1,44 @@
 """BASELINE config 3 end-to-end: cover scene (~488 spheres), 1200x675,
-128 spp, acceleration on (round-1 VERDICT next-step #9).
+128 spp, depth 50, on the GPU megakernel.
 
-This is the closest analog of the reference's flagship render
-(/root/reference/src/main.cpp:55-68: 400x225, 30 spp, depth 50) scaled to
-the BASELINE resolution/spp. It runs the fastest single-chip path (the
-Pallas megakernel: the whole depth-50 bounce loop in one TPU kernel) in
-spp chunks, and reports
+The closest analog of the reference's flagship render (src/main.cpp:55-68:
+400x225, 30 spp, depth 50) scaled to the BASELINE resolution/spp. Runs the
+megakernel in spp chunks and reports
 
   1. device-true rays/s for the chunk pass (tools/measure.py marginal
-     methodology — per-pass block_until_ready lies on this backend), and
-  2. the honest end-to-end wall time of the FULL 128-spp frame, barriered
-     by fetching the final u8 image to the host (a true data dependency),
+     methodology), and
+  2. the end-to-end wall time of the full frame, barriered by fetching the
+     final u8 image to the host (a true data dependency),
 
-then writes the frame (P6 PPM, /tmp/config3_cover_1200x675_128spp.ppm) and
-records CONFIG3_r*.json for the round.
+then writes the frame (P6 PPM) and a JSON record under bench_out/.
+Requires a GPU; prints the device and the card's name and power limit.
 
-Run on the TPU: python tools/bench_config3.py [--spp N] [--depth D]
+    python tools/bench_config3.py [--spp N] [--depth D]
 """
 
 from __future__ import annotations
 
 import argparse
-import glob
 import json
 import os
-import re
+import sys
 import time
 
-import jax
-import jax.numpy as jnp
-import numpy as np
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from raytracingproject_tpu.utils.cache import enable_compilation_cache
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
-enable_compilation_cache()
-
-from raytracingproject_tpu.camera import Camera
-from raytracingproject_tpu.color import to_u8
-from raytracingproject_tpu.render import render_pass
-from raytracingproject_tpu.scene import make_cover_scene
-from tools.measure import fresh_salt, marginal_seconds_per_pass
+from raytracingproject_tpu.camera import Camera  # noqa: E402
+from raytracingproject_tpu.color import to_u8  # noqa: E402
+from raytracingproject_tpu.ops.pallas.megakernel import BLOCK  # noqa: E402
+from raytracingproject_tpu.render import blocks_to_image, render_pass  # noqa: E402
+from raytracingproject_tpu.scene import make_cover_scene  # noqa: E402
+from raytracingproject_tpu.utils.cache import enable_compilation_cache  # noqa: E402
+from raytracingproject_tpu.utils.device import print_device_header  # noqa: E402
+from tools.artifact import artifact_path  # noqa: E402
+from tools.measure import fresh_salt, marginal_seconds_per_pass  # noqa: E402
 
 WIDTH, HEIGHT = 1200, 675
 SPP_CHUNK = 4
@@ -49,137 +48,74 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--spp", type=int, default=128)
     ap.add_argument("--depth", type=int, default=50)
-    ap.add_argument("--seg", type=int, default=0,
-                    help="depth-segment length; 0 = monolithic kernel (the "
-                    "measured winner — seg8 ran 11x slower and faulted the "
-                    "worker at this grid, see megakernel.py segmented notes)")
-    ap.add_argument("--two-phase", type=int,
-                    default=int(os.environ.get("CONFIG3_TWOPHASE", "0")),
-                    help="two-phase cut depth (death-coherent compaction); "
-                    "0 = monolithic")
     args = ap.parse_args()
-    assert args.spp % SPP_CHUNK == 0
+    if args.spp % SPP_CHUNK:
+        raise SystemExit(f"--spp must be a multiple of {SPP_CHUNK}")
+    device = print_device_header()
+    enable_compilation_cache()
 
     scene = make_cover_scene(seed=0)
     camera = Camera(
-        aspect_ratio=16.0 / 9.0,
-        image_width=WIDTH,
-        samples_per_pixel=args.spp,
-        max_depth=args.depth,
-        vfov=20.0,
-        lookfrom=(13.0, 2.0, 3.0),
-        lookat=(0.0, 0.0, 0.0),
-        defocus_angle=0.6,
-        focus_dist=10.0,
+        aspect_ratio=16.0 / 9.0, image_width=WIDTH, samples_per_pixel=args.spp,
+        max_depth=args.depth, vfov=20.0, lookfrom=(13.0, 2.0, 3.0),
+        lookat=(0.0, 0.0, 0.0), defocus_angle=0.6, focus_dist=10.0,
     )
     cam = camera.derive()
-    on_tpu = jax.devices()[0].platform == "tpu"
-
-    front = None
-    if on_tpu:
-        from raytracingproject_tpu.bvh import build_bvh, reorder_scene
-        from raytracingproject_tpu.ops.pallas.megakernel import front_tables
-
-        bvh = build_bvh(scene, leaf_size=8)
-        scene = reorder_scene(scene, bvh)
-        front = front_tables(scene, bvh, order_point=(13.0, 2.0, 3.0))
 
     def one_pass(key):
+        # slot-space accumulation: the unpermute happens once per frame
         return render_pass(
-            scene,
-            cam,
-            key,
-            width=WIDTH,
-            height=HEIGHT,
-            max_depth=args.depth,
-            spp_chunk=SPP_CHUNK,
-            use_megakernel=on_tpu,
-            front=front,
-            early_exit=not on_tpu,
-            depth_segment=args.seg if on_tpu else 0,
-            two_phase=args.two_phase if on_tpu else 0,
-            # slot-space accumulation: the unpermute happens once per frame
-            # (full_frame below / render()), not once per chunk pass
-            raw_slots=on_tpu,
+            scene, cam, key, width=WIDTH, height=HEIGHT, max_depth=args.depth,
+            spp_chunk=SPP_CHUNK, use_megakernel=True, raw_slots=True,
         )
 
     # 1. device-true chunk-pass throughput
     sec_per_pass, checksum = marginal_seconds_per_pass(one_pass, k1=1, k2=3, reps=3)
-    assert np.isfinite(checksum), f"bad checksum {checksum}"
-    rays_per_pass = WIDTH * HEIGHT * SPP_CHUNK
-    rays_per_sec = rays_per_pass / sec_per_pass
+    if not np.isfinite(checksum):
+        raise RuntimeError(f"bad checksum {checksum}")
+    rays_per_sec = WIDTH * HEIGHT * SPP_CHUNK / sec_per_pass
 
-    # 2. honest end-to-end frame: scan over all chunks inside one jit,
-    # barriered by fetching the u8 image itself.
+    # 2. end-to-end frame: scan over all chunks inside one jit, barriered by
+    # fetching the u8 image itself
     n_chunks = args.spp // SPP_CHUNK
-
-    if on_tpu:
-        r_pad = -(-WIDTH * HEIGHT * SPP_CHUNK // 1024) * 1024
-        acc0 = jnp.zeros((r_pad, 3), jnp.float32)
-    else:
-        acc0 = jnp.zeros((HEIGHT, WIDTH, 3), jnp.float32)
+    r_pad = -(-WIDTH * HEIGHT * SPP_CHUNK // BLOCK) * BLOCK
 
     @jax.jit
     def full_frame(key):
         def body(acc, c):
             return acc + one_pass(jax.random.fold_in(key, c)), None
 
-        acc, _ = jax.lax.scan(body, acc0, jnp.arange(n_chunks))
-        if on_tpu:
-            from raytracingproject_tpu.render import blocks_to_image
-
-            acc = blocks_to_image(acc, WIDTH, HEIGHT, SPP_CHUNK)
-        return to_u8(acc / args.spp)
+        acc, _ = jax.lax.scan(body, jnp.zeros((r_pad, 3), jnp.float32),
+                              jnp.arange(n_chunks))
+        return to_u8(blocks_to_image(acc, WIDTH, HEIGHT, SPP_CHUNK) / args.spp)
 
     img = np.asarray(full_frame(jax.random.PRNGKey(fresh_salt())))  # compile
     t0 = time.perf_counter()
     img = np.asarray(full_frame(jax.random.PRNGKey(fresh_salt())))
     frame_s = time.perf_counter() - t0
 
-    out_ppm = "/tmp/config3_cover_1200x675_%dspp.ppm" % args.spp
+    path = artifact_path("CONFIG3")
+    out_ppm = path.replace(".json", f"_{args.spp}spp.ppm")
     with open(out_ppm, "wb") as f:
         f.write(b"P6\n%d %d\n255\n" % (WIDTH, HEIGHT))
         f.write(img.tobytes())
 
-    total_rays = WIDTH * HEIGHT * args.spp
     out = {
         "config": "baseline_3_cover_1200x675",
         "spp": args.spp,
         "max_depth": args.depth,
         "n_spheres": int(scene.radius.shape[0]),
-        "path": (
-            ("pallas_megakernel_front"
-             + (f"_seg{args.seg}" if args.seg else "")
-             + (f"_tp{args.two_phase}" if args.two_phase else ""))
-            if on_tpu else "xla_early_exit"
-        ),
+        "path": "megakernel",
         "rays_per_sec_marginal": round(rays_per_sec, 1),
         "frame_seconds_end_to_end": round(frame_s, 2),
-        "rays_per_sec_end_to_end": round(total_rays / frame_s, 1),
+        "rays_per_sec_end_to_end": round(WIDTH * HEIGHT * args.spp / frame_s, 1),
         "image_mean_u8": round(float(img.mean()), 2),
-        "backend": jax.default_backend(),
+        "device": device,
         "ppm": out_ppm,
     }
     print(json.dumps(out), flush=True)
-
-    from tools.artifact import artifact_path
-
-    # variant runs (e.g. two-phase) merge under their path key instead of
-    # clobbering the round's monolithic record
-    path = artifact_path("CONFIG3")
-    record = out
-    if os.path.exists(path):
-        with open(path) as f:
-            prev = json.load(f)
-        if prev.get("path") == out["path"]:
-            # re-run of the same path: replace the top level, keep variants
-            record = {**out, **({"variants": prev["variants"]}
-                                if "variants" in prev else {})}
-        else:
-            prev.setdefault("variants", {})[out["path"]] = out
-            record = prev
     with open(path, "w") as f:
-        json.dump(record, f, indent=1)
+        json.dump(out, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -1,30 +1,24 @@
-"""Prove-or-retire benchmark for the wavefront renderer (VERDICT r1 #7).
+"""Prove-or-retire benchmark for the wavefront renderer.
 
 Its pitch (wavefront.py:1-21) is "per-bounce compute scales with LIVE rays"
 — which should pay off on high-depth, low-coherence workloads where the
 lockstep megakernel drags dead lanes through the remaining bounces. This
 measures all forward paths on exactly that workload (cover scene, deep
 bounces, dielectric-heavy view) plus the standard bench config, device-true
-(tools/measure.py), and records WAVEFRONT_r*.json for the round.
+(tools/measure.py), and writes a JSON record under bench_out/. Requires a
+GPU; prints the device and the card's name and power limit.
 
-Run on the TPU: python tools/bench_wavefront.py
+    python -m tools.bench_wavefront
 """
 
 from __future__ import annotations
 
-import glob
 import json
-import os
-import re
-
-import jax
-import jax.numpy as jnp
 
 from raytracingproject_tpu.utils.cache import enable_compilation_cache
+from raytracingproject_tpu.utils.device import print_device_header
 
-enable_compilation_cache()
-
-from raytracingproject_tpu.camera import Camera, generate_rays
+from raytracingproject_tpu.camera import Camera
 from raytracingproject_tpu.render import render_pass
 from raytracingproject_tpu.scene import make_cover_scene
 from raytracingproject_tpu.wavefront import render_wavefront
@@ -40,9 +34,10 @@ CONFIGS = [
 
 
 def main() -> None:
+    device = print_device_header()
+    enable_compilation_cache()
     scene = make_cover_scene(seed=0)
-    on_tpu = jax.devices()[0].platform == "tpu"
-    results = {}
+    results = {"device": device}
     for label, width, spp, depth in CONFIGS:
         cam = Camera(
             aspect_ratio=16 / 9, image_width=width, samples_per_pixel=spp,
@@ -67,9 +62,8 @@ def main() -> None:
                                     height=height, spp=spp, max_depth=depth,
                                     pool_size=1 << 16)
 
-        paths = {"xla_early_exit": pass_early, "wavefront": pass_wave}
-        if on_tpu:
-            paths["megakernel"] = pass_mega
+        paths = {"xla_early_exit": pass_early, "wavefront": pass_wave,
+                 "megakernel": pass_mega}
         entry = {}
         for name, fn in paths.items():
             sec, _ = marginal_seconds_per_pass(fn, k1=2, k2=6, reps=3)
@@ -78,13 +72,9 @@ def main() -> None:
                               "unit": "rays/s"}), flush=True)
         results[label] = entry
 
-    rounds = [
-        int(m.group(1))
-        for f in glob.glob("/root/repo/BENCH_r*.json")
-        if (m := re.search(r"BENCH_r(\d+)", f))
-    ]
-    n_round = (max(rounds) + 1) if rounds else 0
-    with open(f"/root/repo/WAVEFRONT_r{n_round:02d}.json", "w") as f:
+    from tools.artifact import artifact_path
+
+    with open(artifact_path("WAVEFRONT"), "w") as f:
         json.dump(results, f, indent=1)
 
 
